@@ -6,12 +6,14 @@ GPU: the quickest proof that the port still starts and is right there.
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: kernel K1 (kernels/csrc/tridiag_pcr.cu) compiled with nvcc;
+  2. build: kernels K1 (kernels/csrc/tridiag_pcr.cu) and K3
+     (kernels/csrc/visible_count.cu), one nvcc each, started together;
   3. K1 against its plain PyTorch twin on the card (B=9 λ candidates,
      N in {5, 64, 257, 448}, Jacobi-scaled blocks): relative error
-     <= 1e-9 in f64 (also against the Thomas solve) and <= 1e-4 in f32,
-     and both times at N=448, B=9 in f64;
-  4. the slice: streaming orbit determination of the committed 10800 s
+     <= 1e-9 in f64 (also against the Thomas solve) and <= 1e-4 in f32;
+     at N=448, B=9 in f64 the kernel's and the twin's times, and that of
+     torch.linalg.solve on the assembled dense (9N x 9N) systems;
+  4. the streaming slice: orbit determination of the committed 10800 s
      fixture (tests/data/torch_stream_seed1.npz) through the port's
      run_streaming on cuda in f64, once cold and twice timed, held to the
      JAX package's result in the fixture (window count, time to 5 km,
@@ -19,9 +21,26 @@ Phases (each prints its lines; any failure exits non-zero):
   5. the tail refinement (refine_terminal, rigid chain) of the stream's
      final states over the whole arc on cuda — the bench arc ends on a
      detection knot, so the stream itself never runs it — against the JAX
-     result in the fixture: relative 1e-6.
-The last two lines are the kernels' JSON record and the device JSON line.
-Needs torch with CUDA and nvcc; imports no JAX.
+     result in the fixture: relative 1e-6;
+  6. the simulator, mode a (bench.py's along-track arc) from the JAX
+     draws in tests/data/torch_sim_seed1.npz, on cuda: JAX's rows
+     (3112; frame equal, lon/lat within 1e-9 deg, pixels within 1e-6 px,
+     confidence within 1e-12) and gate, then streamed: 7 windows, 275.0 s
+     to 5 km, final error within 0.01 km of JAX's 0.474706;
+  7. the simulator, mode b (an orbit of the synthetic full eval: 7920
+     landmarks, 10801 frames) from the fixture's draws: the gate at every
+     frame and the rows as in 6, with the wall and the peak memory, and
+     where the wall goes (µs per orbit and per attitude RK4 step, the
+     detection stage alone);
+  8. K3 against its plain twin on the card at mode b's inputs (10801
+     footprints x 7920 landmarks) in f64 and f32, and a small case of
+     wrapped, empty and NaN boxes: counts equal; both times;
+  9. the main path from the port's own generator: simulate_sequence(1)
+     in mode a on cuda, then streamed: finite, >= 2 windows, final error
+     under 5 km, with the K3 and K1 launch counts of that run.
+The last two lines are the card's nvidia-smi line and the device JSON
+line; the kernels' JSON record comes before them.  Needs torch with CUDA
+and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
@@ -30,12 +49,19 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "data", "torch_stream_seed1.npz")
+STREAM_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_stream_seed1.npz")
+SIM_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_sim_seed1.npz")
 K1_SOURCE = "vinsat_tpu_torch/kernels/csrc/tridiag_pcr.cu"
 K1_REPLACES = "vinsat_tpu/kernels/tridiag_pallas.py:157"
+K3_SOURCE = "vinsat_tpu_torch/kernels/csrc/visible_count.cu"
+K3_REPLACES = "vinsat_tpu/kernels/matching.py:49"
 DURATION_S = 10800
+# H100 SXM data-sheet peaks at 700 W: f64 and f32 outside the tensor
+# cores, HBM3 bandwidth
+PEAK_F64, PEAK_F32, PEAK_BYTES = 34e12, 67e12, 3.35e12
 
 
 def _check(ok, what) -> None:
@@ -69,6 +95,19 @@ def _problem(rng, B, N, k=9):
             U * j[:, :-1, :, None] * j[:, 1:, None, :], b * j)
 
 
+def _dense(D, U):
+    """The assembled (B, 9N, 9N) matrix of the block-tridiagonal system."""
+    import torch
+
+    Bn, N, k, _ = D.shape
+    A = D.new_zeros(Bn, N, k, N, k)
+    i = torch.arange(N, device=D.device)
+    A[:, i, :, i, :] = D.transpose(0, 1)
+    A[:, i[:-1], :, i[1:], :] = U.transpose(0, 1)
+    A[:, i[1:], :, i[:-1], :] = U.transpose(0, 1).transpose(-1, -2)
+    return A.reshape(Bn, N * k, N * k)
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -83,6 +122,68 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _alternate(plain, kernel, reps: int = 20):
+    """Times in turns plain, kernel, kernel, plain on one card: (kernel ms,
+    plain ms, the four readings)."""
+    p1 = _time_ms(plain, reps)
+    k1 = _time_ms(kernel, reps)
+    k2 = _time_ms(kernel, reps)
+    p2 = _time_ms(plain, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def _bound_ms(ops: float, peak: float, nbytes: float):
+    """The least time for `ops` operations at `peak` and `nbytes` at the
+    memory rate: (ms, what bounds it)."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _pcr_flops(B: int, N: int) -> float:
+    """Floating-point operations of K1's PCR on B systems of N 9x9 block
+    rows: per level and row a pivot-free Gauss-Jordan on the 9 x 28 block
+    [D | L U b] (9 pivots x (28 scalings + 8 rows x 28 FMAs)) and the
+    update (four 9x9 block products and two 9x9-by-9 products, with the
+    subtractions); then the final 9 x 10 Gauss-Jordan per row."""
+    k, w = 9, 28
+    gj = k * (w + 2 * (k - 1) * w)
+    update = 4 * 2 * k**3 + 2 * 2 * k * k + 2 * k * k + 2 * k
+    final = k * ((k + 1) + 2 * (k - 1) * (k + 1))
+    levels = max(N - 1, 0).bit_length()
+    return B * N * (levels * (gj + update) + final)
+
+
+def _rows_check(tag, got, want, lonlat_tol):
+    """Rows of the port against JAX's: count and frames equal, lon / lat
+    within lonlat_tol deg, pixels within 1e-6 px, confidence 1e-12."""
+    import numpy as np
+
+    _check(got.shape == want.shape, (tag, got.shape, want.shape))
+    d_ll = float(np.abs(got[:, 1:3] - want[:, 1:3]).max())
+    d_uv = float(np.abs(got[:, 3:5] - want[:, 3:5]).max())
+    d_c = float(np.abs(got[:, 5] - want[:, 5]).max())
+    print(f"{tag}: {len(got)} rows (JAX {len(want)}), max |d lon/lat| "
+          f"{d_ll:.3e} deg, max |d uv| {d_uv:.3e} px, max |d conf| {d_c:.3e}")
+    _check(np.array_equal(got[:, 0], want[:, 0]), (tag, "frames"))
+    _check(d_ll <= lonlat_tol and d_uv <= 1e-6 and d_c <= 1e-12,
+           (tag, d_ll, d_uv, d_c))
+
+
+def _fixture_draws(fx, mode):
+    import numpy as np
+
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.sim import detections, orbits
+
+    g = lambda k: fx[f"{k}_{mode}"]  # noqa: E731
+    return pipeline.SimDraws(
+        orbits.OrbitalElements(*(float(v) for v in g("oe"))),
+        np.asarray(g("q0")), np.asarray(g("w0")), int(g("db_seed")),
+        detections.RecordedDraws(g("score_frame"), g("score_landmark"),
+                                 g("score"), g("noise"), g("conf")))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -92,12 +193,19 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.core import dynamics
     from vinsat_tpu_torch.estimation import ba, ingest, refine, window
     from vinsat_tpu_torch.evalx import ate
-    from vinsat_tpu_torch.kernels import _build, tridiag_pcr
+    from vinsat_tpu_torch.kernels import _build, tridiag_pcr, visible_count
+    from vinsat_tpu_torch.sim import camera, detections, mgrs
 
-    fx = np.load(FIXTURE)
+    fx = np.load(STREAM_FIXTURE)
+    sim_fx = np.load(SIM_FIXTURE)
     dev = torch.device("cuda")
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    plain = tridiag_pcr.block_tridiag_solve_pcr_plain
+    k3 = visible_count.visible_count
+    k3_plain = visible_count.visible_count_plain
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -106,19 +214,21 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
 
-    # 2. build
+    # 2. build both kernels at once
     t0 = time.time()
-    _build.load("tridiag_pcr")
-    print(f"build: tridiag_pcr in {time.time() - t0:.2f} s")
-    for line in _build.build_logs.get("tridiag_pcr", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(_build.load, n)
+                  for n in ("tridiag_pcr", "visible_count")]:
+            f.result()
+    print(f"build: tridiag_pcr + visible_count in {time.time() - t0:.2f} s")
+    for n in ("tridiag_pcr", "visible_count"):
+        for line in _build.build_logs.get(n, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {n}: {line.strip()}")
 
     # 3. K1 against its plain twin (and Thomas) on the card
-    solve = tridiag_pcr.block_tridiag_solve_pcr
-    plain = tridiag_pcr.block_tridiag_solve_pcr_plain
     rng = np.random.default_rng(0)
-    max_abs = 0.0
+    k1_err = 0.0
     for N in (5, 64, 257, 448):
         D, U, b = _problem(rng, 9, N)
         for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
@@ -130,7 +240,7 @@ def main() -> int:
             err = float((x - xp).abs().max() / xp.abs().max())
             line = f"K1 N={N} B=9 {str(dtype)[6:]}: rel err vs plain {err:.3e}"
             if dtype == torch.float64:
-                max_abs = max(max_abs, float((x - xp).abs().max()))
+                k1_err = max(k1_err, float((x - xp).abs().max()))
                 xt = ba.block_tridiag_solve(Dc, Uc, bc)
                 err_t = float((x - xt).abs().max() / xt.abs().max())
                 line += f", vs Thomas {err_t:.3e}"
@@ -139,26 +249,45 @@ def main() -> int:
             _check(np.isfinite(err) and err <= tol, (N, dtype, err))
     D, U, b = (torch.as_tensor(a, device=dev)
                for a in _problem(rng, 9, 448))
-    # alternate plain, kernel, kernel, plain on one card
-    p1 = _time_ms(lambda: plain(D, U, b))
-    k1 = _time_ms(lambda: solve(D, U, b))
-    k2 = _time_ms(lambda: solve(D, U, b))
-    p2 = _time_ms(lambda: plain(D, U, b))
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"K1 time N=448 B=9 f64: kernel {k_ms:.4f} ms ({k1:.4f}, "
-          f"{k2:.4f}), plain {p_ms:.4f} ms ({p1:.4f}, {p2:.4f})  [{smi}]")
+    k1_ms, k1_plain_ms, r = _alternate(lambda: plain(D, U, b),
+                                       lambda: solve(D, U, b))
+    # the library yardstick: torch.linalg.solve on the dense systems,
+    # through each of torch's linear-algebra backends; the faster counts
+    A, rhs = _dense(D, U), b.reshape(9, -1, 1)
+    x_dense = torch.linalg.solve(A, rhs)[..., 0]
+    err_d = float((x_dense.reshape(b.shape) - solve(D, U, b)).abs().max()
+                  / x_dense.abs().max())
+    lib = {}
+    for backend in ("cusolver", "magma"):
+        torch.backends.cuda.preferred_linalg_library(backend)
+        lib[backend] = _time_ms(lambda: torch.linalg.solve(A, rhs), reps=3)
+    torch.backends.cuda.preferred_linalg_library("default")
+    k1_lib_ms = min(lib.values())
+    del A
+    k1_bound = _bound_ms(_pcr_flops(9, 448), PEAK_F64,
+                         8 * (D.numel() + U.numel() + 2 * b.numel()))
+    print(f"K1 time N=448 B=9 f64: kernel {k1_ms:.4f} ms ({r[1]:.4f}, "
+          f"{r[2]:.4f}), plain {k1_plain_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
+          f"dense torch.linalg.solve {lib['cusolver']:.4f} ms (cusolver) / "
+          f"{lib['magma']:.4f} ms (magma) (rel diff {err_d:.2e}), bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})  "
+          f"[{smi}]")
 
-    # 4. the slice on the card
+    # 4. the streaming slice on the card
     seed = int(fx["seed"])
     cfg = window.StreamingConfig(dtype="float64")
+
+    def n_windows(det, orbit, s):
+        prep = window.prepare_stream(det, orbit, s, cfg, device=dev)
+        return prep, len(ingest.split_windows(prep.graph.ii, prep.knot_t))
+
     det, orbit = pipeline.stream_inputs(fx)
-    prep = window.prepare_stream(det, orbit, seed, cfg, device=dev)
-    n_windows = len(ingest.split_windows(prep.graph.ii, prep.knot_t))
-    solve.launches = 0
+    prep, nw = n_windows(det, orbit, seed)
+    solve.launches = k3.launches = 0
     t0 = time.time()
     res = pipeline.run_streaming(fx, seed=seed, cfg=cfg, device=dev)
     cold = time.time() - t0
-    launches = solve.launches
+    k1_launches = solve.launches
     walls = []
     for _ in range(2):
         t0 = time.time()
@@ -167,19 +296,21 @@ def main() -> int:
     t5 = ate.time_to_threshold(res.errors, res.times, 5.0)
     final = float(res.errors[-1])
     ref_final = float(fx["final_error_km"])
-    print(f"stream: {n_windows} windows, {len(res.errors)} errors, "
-          f"time_to_5km_s {t5} (JAX {float(fx['time_to_5km_s'])}), "
+    ref_t5 = float(fx["time_to_5km_s"])
+    print(f"stream: {nw} windows, {len(res.errors)} errors, "
+          f"time_to_5km_s {t5} (JAX {ref_t5}), "
           f"final_error_km {final:.6f} (JAX {ref_final:.6f}), "
           f"recovery_trips {res.recovery_trips}")
     _check(np.isfinite(res.errors).all()
            and np.isfinite(res.final_states).all(), "finite results")
-    _check(n_windows == int(fx["num_windows"]) == 7, n_windows)
-    _check(t5 == float(fx["time_to_5km_s"]), t5)
+    _check(nw == int(fx["num_windows"]) == 7, nw)
+    _check(t5 == ref_t5, t5)
     _check(abs(final - ref_final) <= 0.01, (final, ref_final))
     _check(len(res.errors) == len(fx["errors"]), len(res.errors))
-    print(f"stream: max |d error| vs JAX {np.abs(res.errors - fx['errors']).max():.3e} km")
-    _check(launches > 0, "K1 was not launched on the main path")
-    print(f"stream: K1 launches {launches}")
+    print(f"stream: max |d error| vs JAX "
+          f"{np.abs(res.errors - fx['errors']).max():.3e} km")
+    _check(k1_launches > 0, "K1 was not launched on the main path")
+    print(f"stream: K1 launches {k1_launches}")
     wall = min(walls)
     print(f"stream wall: cold {cold:.2f} s, timed {walls[0]:.2f} s / "
           f"{walls[1]:.2f} s -> {DURATION_S / wall:.1f} frames/s  [{smi}]")
@@ -198,10 +329,148 @@ def main() -> int:
           f"{t_ref:.2f} s, rel err vs JAX {err:.3e}  [{smi}]")
     _check(np.isfinite(refined).all() and err <= 1e-6, err)
 
-    print(json.dumps({"kernels": [{
-        "name": "tridiag_pcr", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms}]}))
+    # 6. the simulator, mode a, from JAX's draws; then streamed
+    kw_a = json.loads(str(sim_fx["sim_kwargs_a"]))
+    k3.launches = 0
+    t0 = time.time()
+    seq_a = pipeline.simulate_from_draws(_fixture_draws(sim_fx, "a"),
+                                         device=dev, **kw_a)
+    wall_a = time.time() - t0
+    print(f"sim a: {len(seq_a.orbit_pos_eci_km)} s arc, "
+          f"{len(seq_a.dets.frame_visible)} frames, "
+          f"{seq_a.db.num_landmarks} landmarks, wall {wall_a:.2f} s, K3 "
+          f"launches {k3.launches}  [{smi}]")
+    _rows_check("sim a", seq_a.det_rows, sim_fx["det_rows_a"], 1e-9)
+    _check(len(seq_a.det_rows) == 3112, len(seq_a.det_rows))
+    _check(np.array_equal(seq_a.dets.frame_visible.cpu().numpy(),
+                          sim_fx["frame_visible_a"]), "gate a")
+    d_pos = np.abs(seq_a.orbit_pos_eci_km[::100] - sim_fx["pos_eci_a"]).max()
+    print(f"sim a: max |d pos_eci| vs JAX (every 100 s) {d_pos:.3e} km")
+    _, nw_a = n_windows(*pipeline.stream_inputs(seq_a), seed)
+    res_a = pipeline.run_streaming(seq_a, seed=seed, cfg=cfg, device=dev)
+    t5_a = ate.time_to_threshold(res_a.errors, res_a.times, 5.0)
+    final_a = float(res_a.errors[-1])
+    print(f"sim a streamed: {nw_a} windows, time_to_5km_s {t5_a}, "
+          f"final_error_km {final_a:.6f} (JAX {ref_final:.6f})")
+    _check(nw_a == 7 and t5_a == 275.0 and abs(final_a - ref_final) <= 0.01,
+           (nw_a, t5_a, final_a))
+
+    # 7. the simulator, mode b, from JAX's draws
+    kw_b = json.loads(str(sim_fx["sim_kwargs_b"]))
+    k3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    seq_b = pipeline.simulate_from_draws(_fixture_draws(sim_fx, "b"),
+                                         device=dev, **kw_b)
+    wall_b = time.time() - t0
+    n_frames = len(seq_b.dets.frame_visible)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"sim b: {n_frames} frames, {seq_b.db.num_landmarks} landmarks, "
+          f"{int(seq_b.dets.frame_visible.sum())} visible, wall "
+          f"{wall_b:.2f} s -> {n_frames / wall_b:.1f} frames/s, peak "
+          f"memory {peak:.1f} MiB, K3 launches {k3.launches}  [{smi}]")
+    _check(k3.launches > 0, "K3 was not launched by the simulator")
+    _check(np.array_equal(seq_b.dets.frame_visible.cpu().numpy(),
+                          sim_fx["frame_visible_b"]), "gate b")
+    _rows_check("sim b", seq_b.det_rows, sim_fx["det_rows_b"], 1e-9)
+    # where a simulated arc's time goes: each rollout's cost per 1 Hz step,
+    # and the detection stage (gate, projection, draws) alone
+    tr = seq_b.traj
+    step_us = {}
+    for tag, fn, x0 in (
+            ("orbit", dynamics.rollout_orbit,
+             torch.cat([tr.pos_eci[0], tr.vel_eci[0]])),
+            ("attitude", dynamics.rollout_attitude,
+             torch.cat([tr.quat_body_eci[0], tr.omega_body[0]]))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn(x0, 1000, 1.0)
+        torch.cuda.synchronize()
+        step_us[tag] = (time.time() - t0) * 1e3
+    t0 = time.time()
+    detections.generate_detections(
+        _fixture_draws(sim_fx, "b").detection, tr, seq_b.db, conf_low=0.82)
+    torch.cuda.synchronize()
+    print(f"sim b stages: orbit rollout {step_us['orbit']:.1f} µs/step, "
+          f"attitude rollout {step_us['attitude']:.1f} µs/step (1000-step "
+          f"chains), detection stage {time.time() - t0:.3f} s  [{smi}]")
+
+    # 8. K3 against its plain twin at mode b's inputs
+    cam = camera.CameraModel.from_hfov()
+    pos_b = seq_b.traj.pos_ecef * 1000.0
+    bounds, _ = camera.footprint_bounds(cam, camera.CameraPose.nadir(pos_b))
+    db = seq_b.db
+    accepted = db.best & mgrs.active_region_mask(dev)[db.region]
+    F, L = bounds.shape[0], db.num_landmarks
+    k3_err, k3_times = 0, {}
+    for dtype, peak_rate in ((torch.float64, PEAK_F64),
+                             (torch.float32, PEAK_F32)):
+        args = [bounds.to(dtype).contiguous(), db.lon.to(dtype),
+                db.lat.to(dtype), accepted]
+        got, want = k3(*args), k3_plain(*args)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, int((got - want).abs().max()))
+        _check(torch.equal(got, want), ("K3", dtype))
+        if dtype == torch.float64:
+            _check(np.array_equal(got.cpu().numpy(), sim_fx["count_b"]),
+                   "K3 count vs JAX")
+        ms, p_ms, r = _alternate(lambda: k3_plain(*args), lambda: k3(*args))
+        nbytes = sum(a.numel() * a.element_size() for a in args) + 4 * F
+        bnd = _bound_ms(8.0 * F * L, peak_rate, nbytes)
+        k3_times[dtype] = (ms, p_ms, bnd)
+        print(f"K3 F={F} L={L} {str(dtype)[6:]}: equal to plain, "
+              f"{int(got.sum())} in boxes; kernel {ms:.4f} ms ({r[1]:.4f}, "
+              f"{r[2]:.4f}), plain {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]})  [{smi}]")
+    small = torch.tensor([[170.0, -10.0, 200.0, 10.0],
+                          [float("inf"), float("inf"), -float("inf"),
+                           -float("inf")],
+                          [float("nan"), -10.0, 10.0, 10.0],
+                          [-5.0, -5.0, 5.0, 5.0]], device=dev)
+    lon_s = torch.tensor([175.0, -175.0, 0.0, 5.0, -170.0], device=dev)
+    lat_s = torch.tensor([0.0, 5.0, 0.0, 0.0, 0.0], device=dev)
+    best_s = torch.ones(5, dtype=torch.bool, device=dev)
+    for dtype in (torch.float64, torch.float32):
+        s_args = (small.to(dtype), lon_s.to(dtype), lat_s.to(dtype), best_s)
+        got = k3(*s_args)
+        _check(got.tolist() == k3_plain(*s_args).tolist() == [3, 0, 0, 1],
+               ("K3 small", got.tolist()))
+    print("K3 small case (wrapped, empty, NaN, edge boxes): equal to plain")
+
+    # 9. the main path from the port's own generator
+    solve.launches = k3.launches = 0
+    t0 = time.time()
+    seq = pipeline.simulate_sequence(seed, device=dev, **kw_a)
+    wall_sim = time.time() - t0
+    res9 = pipeline.run_streaming(seq, seed=seed, cfg=cfg, device=dev)
+    wall_9 = time.time() - t0
+    k3_launches, k1_main = k3.launches, solve.launches
+    _, nw9 = n_windows(*pipeline.stream_inputs(seq), seed)
+    t5_9 = ate.time_to_threshold(res9.errors, res9.times, 5.0)
+    print(f"own arc (seed {seed}, mode a): {len(seq.det_rows)} rows, {nw9} "
+          f"windows, {len(res9.errors)} errors, time_to_5km_s {t5_9}, "
+          f"final_error_km {float(res9.errors[-1]):.6f}, max error "
+          f"{float(res9.errors.max()):.3f} km; sim {wall_sim:.2f} s, sim + "
+          f"stream {wall_9:.2f} s; launches K3 {k3_launches}, K1 {k1_main}"
+          f"  [{smi}]")
+    _check(np.isfinite(seq.det_rows).all() and np.isfinite(res9.errors).all()
+           and np.isfinite(res9.final_states).all(), "own arc finite")
+    _check(nw9 >= 2 and float(res9.errors[-1]) < 5.0,
+           (nw9, float(res9.errors[-1])))
+    _check(k3_launches > 0, "K3 was not launched on the main path")
+
+    k3_ms, k3_plain_ms, k3_bound = k3_times[torch.float64]
+    print(json.dumps({"kernels": [
+        {"name": "tridiag_pcr", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": k1_launches,
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": k1_lib_ms},
+        {"name": "visible_count", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": k3_launches,
+         "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,13 +11,16 @@ against the CPU (plain path): states relative 1e-9 (the two differ in
 summation order, and index_add_ sums with atomics on the card); the trial
 residual mean 1e-8, since it weighs differences of ~7000 km positions by
 sqrt(Σ) (tests/test_torch_ba.py).
+
+K3 against its plain twin at the simulator's full size (F=10801 frames,
+L=7920 landmarks) in f64 and f32: counts equal exactly.
 """
 import numpy as np
 import pytest
 import torch
 
 from vinsat_tpu_torch.estimation import ba
-from vinsat_tpu_torch.kernels import tridiag_pcr
+from vinsat_tpu_torch.kernels import tridiag_pcr, visible_count
 
 
 def _cuda():
@@ -105,3 +108,47 @@ def test_ba_iteration_on_card_matches_cpu():
     assert float(cpu.lamda_init) == float(gpu.lamda_init)
     assert _rel(gpu.states.cpu(), cpu.states) < 1e-9
     assert _rel(gpu.mean_residual.cpu(), cpu.mean_residual) < 1e-8
+
+
+def _k3_case(rng, F, L):
+    """Boxes the size of a footprint (~4 x 2 deg) over landmark-dense
+    boxes, some wrapped across the antimeridian, some empty or NaN."""
+    lon = rng.uniform(-180.0, 180.0, L)
+    lat = rng.uniform(-60.0, 60.0, L)
+    c = np.stack([rng.choice(lon, F), rng.choice(lat, F)], axis=1)
+    h = rng.uniform([1.5, 0.8], [2.5, 1.4], size=(F, 2))
+    bounds = np.concatenate([c - h, c + h], axis=1)
+    bounds[:64, 0] = rng.uniform(177.0, 179.5, 64)
+    bounds[:64, 2] = bounds[:64, 0] + 4.0
+    bounds[64] = [np.inf, np.inf, -np.inf, -np.inf]
+    bounds[65, 1] = np.nan
+    return bounds, lon, lat, rng.uniform(size=L) < 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_visible_count_matches_plain_full_size(dtype):
+    dev = _cuda()
+    bounds, lon, lat, best = _k3_case(np.random.default_rng(7), 10801, 7920)
+    args = [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in (bounds, lon, lat)]
+    args.append(torch.as_tensor(best, device=dev))
+    before = visible_count.visible_count.launches
+    got = visible_count.visible_count(*args)
+    torch.cuda.synchronize()
+    assert visible_count.visible_count.launches == before + 1
+    want = visible_count.visible_count_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(want.sum()) > 0 and int(want[64]) == int(want[65]) == 0
+
+
+@pytest.mark.cuda
+def test_visible_count_rejects_non_contiguous():
+    dev = _cuda()
+    bounds, lon, lat, best = _k3_case(np.random.default_rng(8), 100, 300)
+    b = torch.as_tensor(bounds, device=dev)
+    with pytest.raises(ValueError):
+        visible_count.visible_count(
+            b.t().contiguous().t(), torch.as_tensor(lon, device=dev),
+            torch.as_tensor(lat, device=dev),
+            torch.as_tensor(best, device=dev))

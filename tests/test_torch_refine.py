@@ -75,6 +75,6 @@ def test_refine_terminal_matches_jax():
         f["ii"], INTR, "float64", cum_rot=f["cum_rot"])
     got = refine.refine_terminal(
         st, f["gaps"], f["landmarks_xyz"], f["landmarks_uv"], f["conf"],
-        f["ii"], INTR, cum_rot=f["cum_rot"])
+        f["ii"], INTR, cum_rot=f["cum_rot"], device="cpu")
     assert got.shape == (7, 10) and M > 0
     assert rel_err(got, want) < 1e-6

@@ -36,7 +36,8 @@ def _runs():
         cfg=jwindow.StreamingConfig(dtype="float64", max_iters=30))
     got = pipeline.run_streaming(
         seq, seed=1, cfg=window.StreamingConfig(dtype="float64",
-                                                max_iters=30))
+                                                max_iters=30),
+        device="cpu")
     return seq, want, got
 
 
@@ -53,7 +54,8 @@ def test_stream_matches_jax():
 def test_stream_windows_match_jax():
     seq = _runs()[0]
     cfg = window.StreamingConfig(dtype="float64")
-    mine = window.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1, cfg)
+    mine = window.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1, cfg,
+                                 device="cpu")
     ref = jwindow.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1,
                                  jwindow.StreamingConfig(dtype="float64"))
     w_mine = ingest.split_windows(mine.graph.ii, mine.knot_t)
@@ -79,7 +81,8 @@ def test_unported_modes_raise():
                dict(use_prior=True)):
         with pytest.raises(NotImplementedError):
             window.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km,
-                                cfg=window.StreamingConfig(**kw))
+                                cfg=window.StreamingConfig(**kw),
+                                device="cpu")
 
 
 def test_port_imports_no_jax():

@@ -100,3 +100,19 @@ def test_wrapper_rejects_bad_shapes():
         tridiag_pcr.block_tridiag_solve_pcr(T(D), T(U[:, :-1]), T(b))
     with pytest.raises(TypeError):
         tridiag_pcr.block_tridiag_solve_pcr(T(D), T(U, torch.float32), T(b))
+
+
+@pytest.mark.parametrize("N,expect", [(63, "thomas"), (64, "pcr")])
+def test_auto_dispatch_follows_jax(N, expect, monkeypatch):
+    """"auto" takes Thomas below 64 block rows (JAX's f64 dispatch) and
+    K1 (here its plain twin) from 64."""
+    calls = []
+    real = tridiag_pcr.block_tridiag_solve_pcr
+    monkeypatch.setattr(tridiag_pcr, "block_tridiag_solve_pcr",
+                        lambda *a: calls.append("pcr") or real(*a))
+    rng = np.random.default_rng(N)
+    D, U, b = _scaled(rng, *_problem(rng, N))
+    got = ba.jacobi_scaled_tridiag_solve(T(D), T(U), T(b))
+    assert calls == (["pcr"] if expect == "pcr" else [])
+    want = ba.jacobi_scaled_tridiag_solve(T(D), T(U), T(b), variant=expect)
+    assert torch.equal(got, want)

@@ -12,9 +12,14 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from vinsat_tpu import pipeline as jpipeline
 from vinsat_tpu.core import quat as jquat
 from vinsat_tpu.estimation import ba as jba
 from vinsat_tpu.estimation import factors as jfactors
+from vinsat_tpu.sim import camera as jcam
+from vinsat_tpu.sim import detections as jdet
+from vinsat_tpu.sim import landmarks as jlm
+from vinsat_tpu.sim import mgrs as jmgrs
 from vinsat_tpu.sim import orbits
 
 INTR = np.array([3547.8512126219637, 3547.8512126219637, 2304.0, 1296.0])
@@ -105,3 +110,77 @@ def jax_problem(fields: dict) -> jba.BAProblem:
 def numpy_fields(prob) -> dict:
     """A JAX BAProblem's fields as numpy arrays."""
     return {k: np.asarray(v) for k, v in prob._asdict().items()}
+
+
+def jax_trajectory_draws(key):
+    """The draws of the JAX `orbits.generate_trajectory(key)` (f64): the
+    elements (6,) in OrbitalElements order, the unit quaternion q0 (4,)
+    and the body rates w0 (3,), by repeating its key splits."""
+    k_att, k_oe = jax.random.split(key)
+    oe = orbits.sample_random_oe(k_oe)
+    kq, kw = jax.random.split(k_att)
+    q0 = jax.random.normal(kq, (4,), jnp.float64)
+    q0 = np.asarray(q0 / jnp.linalg.norm(q0))
+    w0 = 2 * (np.pi / 180) * np.asarray(jax.random.normal(kw, (3,),
+                                                          jnp.float64))
+    return np.array([float(v) for v in oe]), q0, w0
+
+
+def jax_simulation(seed: int, db=None, **sim_kw) -> dict:
+    """Run the JAX `simulate_sequence(seed, db=db, **sim_kw)` (f64, CPU) and
+    recover every draw it made, by repeating its key splits:
+
+      oe (6,), q0 (4,), w0 (3,) — the trajectory's draws;
+      db_seed — the int its landmark DB was drawn from (-1 with `db`);
+      score_frame, score_landmark, score — the selection score of every
+        in-view pair of a gated frame (the only ones that can be chosen),
+        row-major, frames counted in the strided frame list;
+      noise (M, 2), conf (M,) — the standard-normal pixel noise and the
+        uniform confidence draw of the M valid slots, row-major;
+
+    beside its outputs: det_rows, pos_eci (T, 3), frame_visible and the
+    per-frame visibility count (Tf,), and the DB, the trajectory and the
+    FrameDetections as dicts of numpy arrays."""
+    seq = jpipeline.simulate_sequence(seed, db=db, **sim_kw)
+    along = sim_kw.get("along_track", False)
+    stride = sim_kw.get("frame_stride", 1)
+    max_dets = sim_kw.get("max_dets", 8)
+    k_traj, k_db, k_det = jax.random.split(jax.random.PRNGKey(seed), 3)
+    oe, q0, w0 = jax_trajectory_draws(k_traj)
+    if db is not None:
+        db_seed = -1
+    elif along:
+        db_seed = int(jax.random.randint(k_db, (), 0, 2**31 - 1))
+    else:
+        db_seed = int(np.asarray(jax.random.key_data(k_db)).ravel()[-1]
+                      ) & 0x7FFFFFFF
+    jdb = seq.db
+    active = (jnp.ones(len(jmgrs.ZONE_LABELS), bool) if along and db is None
+              else jmgrs.active_region_mask())
+    cam = jcam.CameraModel.from_hfov()
+    pos = jnp.asarray(np.asarray(seq.traj.pos_ecef)[::stride] * 1000.0)
+    bounds, _ = jcam.footprint_bounds(cam, jcam.CameraPose.nadir(pos))
+    count = np.asarray(jlm.visible_best_count(jdb, bounds, active))
+    gate = jdet._frame_gate(cam, jdb, pos, active, 3)
+    mask, _ = jax.vmap(lambda p, g: jdet._project_frame(
+        cam, jdb, p, g, active))(pos, gate)
+    mask = np.asarray(mask)
+    fi, li = np.nonzero(mask)
+    score = np.asarray(jax.random.uniform(k_det, mask.shape))[fi, li]
+    dets = jdet.generate_detections(
+        k_det, seq.traj, jdb, noise_px=sim_kw.get("noise_px", 4.0),
+        max_dets=max_dets, conf_low=0.82, frame_stride=stride,
+        region_mask=active if along and db is None else None)
+    valid = np.asarray(dets.valid)
+    k_noise, k_conf = jax.random.split(jax.random.fold_in(k_det, 1))
+    noise = np.asarray(jax.random.normal(k_noise, valid.shape + (2,)))
+    conf = np.asarray(jax.random.uniform(k_conf, valid.shape))
+    return dict(
+        oe=oe, q0=q0,
+        w0=w0, db_seed=db_seed, score_frame=fi, score_landmark=li,
+        score=score, noise=noise[valid], conf=conf[valid],
+        det_rows=np.asarray(seq.det_rows), pos_eci=np.asarray(
+            seq.orbit_pos_eci_km), frame_visible=np.asarray(gate),
+        count=count, db={k: np.asarray(v) for k, v in jdb._asdict().items()},
+        traj={k: np.asarray(v) for k, v in seq.traj._asdict().items()},
+        dets={k: np.asarray(v) for k, v in dets._asdict().items()})

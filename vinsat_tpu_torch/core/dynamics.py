@@ -1,5 +1,6 @@
-"""Orbit dynamics and the RK4 gap bridge with forward sensitivity (port of
-the streaming slice's part of vinsat_tpu/core/dynamics.py).
+"""Orbit and attitude dynamics, the simulator's RK4 rollouts, and the RK4
+gap bridge with forward sensitivity (port of vinsat_tpu/core/dynamics.py
+without the textbook J2 form and the hi-fi force model).
 
 The acceleration keeps the reference's non-standard r_mat J2 form, shared
 by simulator and estimator.  Where the JAX package takes each RK4 step's
@@ -13,6 +14,12 @@ JAX package masks: a hop of length 0 leaves the state (and Jacobian)
 unchanged, and the hop schedule is known on the host.  `hop_schedule`
 returns the active hops of one gap, and callers that know their gaps on the
 host pass the trimmed `num_hops`.
+
+The rollouts (`rollout_orbit`, `rollout_attitude`) are the JAX package's
+`lax.scan`s as Python loops of eager steps on the state's device: in f64 on
+the card, where the JAX package pins ground truth to the host CPU because
+the TPU has no f64.  Each step is a few dozen small launches, so a 10800 s
+arc is launch-bound.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import math
 from typing import List
 
 import torch
+
+from vinsat_tpu_torch.core import quat
 
 MU_EARTH = 398600.4418  # km^3/s^2
 J2_COEFF = 1.75553e10  # km^5/s^2, ~ J2*mu*Re^2
@@ -96,6 +105,60 @@ def rk4_step(x, h):
     f4 = orbit_dynamics(_axpy(x, h, f3))
     s = torch.add(torch.add(f1, f2, alpha=2.0), f3, alpha=2.0) + f4
     return _axpy(x, h / 6.0, s)
+
+
+def rollout_orbit(x0, num_steps: int, h: float):
+    """num_steps RK4 steps of the orbit state x0 (..., 6) with step h;
+    returns every state, (num_steps + 1, ..., 6)."""
+    xs = [x0]
+    for _ in range(num_steps):
+        xs.append(rk4_step(xs[-1], h))
+    return torch.stack(xs)
+
+
+# 3U CubeSat principal inertia (m = 4 kg, 0.1 x 0.1 x 0.34 m), kg m^2
+_M_SAT = 4.0
+INERTIA_3U = (
+    (_M_SAT / 12) * (0.1**2 + 0.34**2),
+    (_M_SAT / 12) * (0.1**2 + 0.34**2),
+    (_M_SAT / 12) * (0.1**2 + 0.1**2),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _inertia(inertia_diag, device: torch.device, dtype: torch.dtype):
+    return torch.tensor(inertia_diag, dtype=dtype, device=device)
+
+
+def attitude_dynamics(x, inertia_diag=INERTIA_3U):
+    """State derivative for x = [q (4, scalar-last), omega (3)]:
+    q_dot = 1/2 q ⊗ [omega, 0]; omega_dot = -J^-1 (omega × J omega)."""
+    q = quat.normalize(x[..., :4])
+    w = x[..., 4:7]
+    wq = torch.cat([w, torch.zeros_like(w[..., :1])], dim=-1)
+    q_dot = 0.5 * quat.multiply(q, wq)
+    J = _inertia(tuple(inertia_diag), x.device, x.dtype)
+    w_dot = -torch.linalg.cross(w, J * w, dim=-1) / J
+    return torch.cat([q_dot, w_dot], dim=-1)
+
+
+def attitude_rk4_step(x, h: float, inertia_diag=INERTIA_3U):
+    """One RK4 step of the attitude state, quaternion renormalised."""
+    f1 = attitude_dynamics(x, inertia_diag)
+    f2 = attitude_dynamics(x + 0.5 * h * f1, inertia_diag)
+    f3 = attitude_dynamics(x + 0.5 * h * f2, inertia_diag)
+    f4 = attitude_dynamics(x + h * f3, inertia_diag)
+    xn = x + (h / 6.0) * (f1 + 2 * f2 + 2 * f3 + f4)
+    return torch.cat([quat.normalize(xn[..., :4]), xn[..., 4:7]], dim=-1)
+
+
+def rollout_attitude(x0, num_steps: int, h: float):
+    """num_steps attitude RK4 steps of x0 (..., 7); returns every state,
+    (num_steps + 1, ..., 7)."""
+    xs = [x0]
+    for _ in range(num_steps):
+        xs.append(attitude_rk4_step(xs[-1], h))
+    return torch.stack(xs)
 
 
 def _jf_mul(Ja, M):

@@ -1,6 +1,6 @@
-"""Reference frames: GMST Earth rotation, ECI<->ECEF, geodetic->ECEF, nadir
-attitude (port of the parts of vinsat_tpu/core/frames.py that GT
-conditioning needs).  Kilometres throughout.
+"""Reference frames: GMST Earth rotation, ECI<->ECEF, geodetic<->ECEF,
+nadir attitude (port of vinsat_tpu/core/frames.py).  Kilometres
+throughout.
 """
 from __future__ import annotations
 
@@ -72,6 +72,24 @@ def lonlat_to_eci(lon_deg, lat_deg, times_s, alt_km=0.0):
     return ecef_to_eci(geodetic_to_ecef(lat_deg, lon_deg, alt_km), times_s)
 
 
+def ecef_to_geodetic(r_ecef_km, iters: int = 5):
+    """ECEF km -> (lat_deg, lon_deg, alt_km) by a fixed-point iteration
+    with a static trip count (Bowring-style, as the JAX package)."""
+    x, y, z = r_ecef_km[..., 0], r_ecef_km[..., 1], r_ecef_km[..., 2]
+    lon = torch.atan2(y, x)
+    p = torch.sqrt(x**2 + y**2)
+    lat = torch.atan2(z, p * (1.0 - WGS84_E2))
+    for _ in range(iters):
+        sin_lat = torch.sin(lat)
+        N = WGS84_A_KM / torch.sqrt(1.0 - WGS84_E2 * sin_lat**2)
+        alt = p / torch.cos(lat) - N
+        lat = torch.atan2(z, p * (1.0 - WGS84_E2 * N / (N + alt)))
+    sin_lat = torch.sin(lat)
+    N = WGS84_A_KM / torch.sqrt(1.0 - WGS84_E2 * sin_lat**2)
+    alt = p / torch.cos(lat) - N
+    return torch.rad2deg(lat), torch.rad2deg(lon), alt
+
+
 def nadir_rotation(pos):
     """Nadir-pointing camera rotation R = [xc | yc | zc] (columns) with the
     boresight zc at Earth's centre."""
@@ -88,3 +106,10 @@ def nadir_rotation(pos):
 def nadir_quaternion(pos):
     """Scalar-last quaternion of the nadir rotation."""
     return quat.from_matrix(nadir_rotation(pos))
+
+
+def nadir_axes(pos):
+    """(dir, up, right) unit vectors of the nadir camera: (zc, -yc, xc) of
+    nadir_rotation, which the simulator packs as dir / up / right."""
+    R = nadir_rotation(pos)
+    return R[..., 2], -R[..., 1], R[..., 0]

@@ -8,8 +8,10 @@ matrix is never dense: per-knot blocks come from `index_add_` over the
 observations (the JAX `segment_sum`; on CUDA it sums with atomics, so runs
 differ at roundoff) and the damped system is solved blockwise.
 
-Solve dispatch: a CUDA tensor goes to kernel K1 (kernels/tridiag_pcr), a
-CPU tensor to K1's plain PyTorch twin; "thomas" forces the Thomas oracle.
+Solve dispatch ("auto"): as in the JAX package, a system of N < 64 block
+rows takes the plain Thomas scan; from N = 64 a CUDA tensor goes to kernel
+K1 (kernels/tridiag_pcr), a CPU tensor to K1's plain PyTorch twin.
+"pcr" and "thomas" force one of the two.
 The JAX package's XLA workaround variants (bcr*, chunked*) exist for a
 TPU compiler pathology and are not ported.
 
@@ -74,7 +76,8 @@ class SolverParams(NamedTuple):
     max_iters: int = 0
     conv_rtol: float = 0.01
     conv_patience: int = 10_000
-    # "auto" / "pcr" (kernel K1 or its twin by device) or "thomas"
+    # "auto" (Thomas below PCR_MIN_N block rows, else "pcr"), "pcr" (kernel
+    # K1 or its twin by device) or "thomas"
     tridiag_variant: str = "auto"
 
 
@@ -166,6 +169,11 @@ def block_tridiag_solve(D, U, b):
     return block_tridiag_solve_blockrhs(D, U, b[..., None])[..., 0]
 
 
+# The JAX package's f64 "auto" solve takes the plain scan below 64 rows
+# (vinsat_tpu/estimation/ba.py:258-266, _auto_chunks: 1 chunk below 128).
+PCR_MIN_N = 64
+
+
 def jacobi_scaled_tridiag_solve(D, U, b, variant: str = "auto"):
     """Block-tridiagonal solve with symmetric Jacobi preconditioning
     s = diag(D)^{-1/2}: solve (SHS)(S⁻¹x) = Sb.  Leading batch dims are
@@ -175,7 +183,9 @@ def jacobi_scaled_tridiag_solve(D, U, b, variant: str = "auto"):
     Ds = D * s[..., :, :, None] * s[..., :, None, :]
     Us = U * s[..., :-1, :, None] * s[..., 1:, None, :]
     bs = b * s
-    if variant in ("auto", "pcr"):
+    if variant == "auto":
+        variant = "pcr" if D.shape[-3] >= PCR_MIN_N else "thomas"
+    if variant == "pcr":
         from vinsat_tpu_torch.kernels.tridiag_pcr import (
             block_tridiag_solve_pcr)
 

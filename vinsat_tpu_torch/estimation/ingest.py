@@ -14,6 +14,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from vinsat_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from vinsat_tpu_torch.core import frames, quat
 
 KNOT_STRIDE = 1000  # s, filler-knot spacing
@@ -88,12 +89,13 @@ class GroundTruth(NamedTuple):
 
 
 def process_ground_truths(orbit_pos_eci_km: np.ndarray, graph: DetectionGraph,
-                          dt: float = 1.0, device="cpu",
+                          dt: float = 1.0, device=DEFAULT_DEVICE,
                           dtype=torch.float64) -> GroundTruth:
     """GT conditioning: forward-difference velocities, nadir attitude from
     position, body rates from the quaternion sequence, landmarks lifted
     lon/lat -> ECI at their frame time.  The torch work runs on `device`;
     results come back as host numpy arrays."""
+    device = resolve_device(device)
     vel_full = np.diff(orbit_pos_eci_km, axis=0) / dt
     vel_full = np.concatenate([vel_full, np.zeros((1, 3))], axis=0)
 

@@ -23,6 +23,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from vinsat_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from vinsat_tpu_torch.core import dynamics, quat
 from vinsat_tpu_torch.estimation import factors
 
@@ -256,12 +257,13 @@ def refine_terminal(final_states: np.ndarray, gaps: np.ndarray,
                     num_iters: int = 20,
                     cum_rot: Optional[np.ndarray] = None,
                     att_sigma: float = 1e-2, ratio: float = 1.3,
-                    device="cpu") -> np.ndarray:
+                    device=DEFAULT_DEVICE) -> np.ndarray:
     """Host wrapper: refine the streaming solution over its knot span and
     return (N, 10) host states — the 6-dof fit with the original attitudes
     (cum_rot None) or the rigid-chain selection policy (cum_rot given).
     The JAX package pads to buckets to reuse compiled programs; eager torch
     needs no padding (padding there is exact, so results agree)."""
+    device = resolve_device(device)
     N = final_states.shape[0]
 
     def t(a, dt=dtype):

@@ -24,7 +24,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from vinsat_tpu_torch.config import REFERENCE_INTRINSICS
+from vinsat_tpu_torch.config import (DEFAULT_DEVICE, REFERENCE_INTRINSICS,
+                                     resolve_device)
 from vinsat_tpu_torch.core import dynamics, quat
 from vinsat_tpu_torch.estimation import ba, factors, ingest, refine
 
@@ -254,12 +255,14 @@ class PreparedStream(NamedTuple):
 
 def prepare_stream(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                    seed: int, cfg: StreamingConfig,
-                   intrinsics: Optional[np.ndarray] = None, device="cpu",
+                   intrinsics: Optional[np.ndarray] = None,
+                   device=DEFAULT_DEVICE,
                    dtype=torch.float64) -> Optional[PreparedStream]:
     """Ingest + condition one detection sequence: graph build, GT
     conditioning, GT-reprojection gating, noise_level interpolation, the
     initial-noise draw (numpy Generator, the JAX package's stream of
     draws) and cumulative rotations.  None for an empty sequence."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     T = orbit_pos_eci_km.shape[0]
     if len(det_rows) == 0:
@@ -319,7 +322,7 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                  seed: int = 0, cfg: StreamingConfig = StreamingConfig(),
                  solver: ba.SolverParams = ba.SolverParams(),
                  intrinsics: Optional[np.ndarray] = None,
-                 device="cpu") -> StreamingResult:
+                 device=DEFAULT_DEVICE) -> StreamingResult:
     """Run streaming OD on one detection sequence on `device`.
 
     det_rows: (M, 6) [frame, lon, lat, xc, yc, conf]; orbit_pos_eci_km:
@@ -327,7 +330,7 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
     for the time-to-<5km evaluation.
     """
     _check_supported(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = torch.float64
 
     def t(a, dt=dtype):
