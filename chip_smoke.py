@@ -6,8 +6,9 @@ GPU: the quickest proof that the port still starts and is right there.
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: kernels K1 (kernels/csrc/tridiag_pcr.cu) and K3
-     (kernels/csrc/visible_count.cu), one nvcc each, started together;
+  2. build: kernels K1 (kernels/csrc/tridiag_pcr.cu), K2
+     (kernels/csrc/normal_eq.cu) and K3 (kernels/csrc/visible_count.cu),
+     one nvcc each, started together;
   3. K1 against its plain PyTorch twin on the card (B=9 λ candidates,
      N in {5, 64, 257, 448}, Jacobi-scaled blocks): relative error
      <= 1e-9 in f64 (also against the Thomas solve) and <= 1e-4 in f32;
@@ -37,7 +38,24 @@ Phases (each prints its lines; any failure exits non-zero):
      wrapped, empty and NaN boxes: counts equal; both times;
   9. the main path from the port's own generator: simulate_sequence(1)
      in mode a on cuda, then streamed: finite, >= 2 windows, final error
-     under 5 km, with the K3 and K1 launch counts of that run.
+     under 5 km, with the K3 and K1 launch counts of that run;
+ 10. K2 against its plain twin on the card at the long arc's shape (2168
+     knots, D=4, random J, r, w from a seed): relative error <= 1e-12 in
+     f64 and <= 1e-5 with f32=True; the kernel's, the twin's and the two
+     einsums' (dist/sharded_ba.py:226-227 of the JAX package) times;
+ 11. the long arc (config 5(a)) from JAX's data: the committed sequence of
+     tests/data/torch_longarc_seed1.npz through the port's
+     build_sharded_problem (initial states within 1e-12 of JAX's) and
+     solve_long_arc on cuda at n_arc 8, f64, 20 iterations (8
+     vision-only): states after the first iteration within 1e-9 relative
+     of JAX's, final per-knot errors within 0.01 km and the median within
+     1e-3 km; K2's launches in that run (20), the wall of a timed run,
+     and two iterations under torch.profiler (device kernels per
+     iteration, the device-busy share of the wall, K2's device time per
+     launch);
+ 12. the port's own long arc: simulate_sequence(1, duration_s=10800,
+     frame_stride=5, along_track=True) on cuda, then solved as in 11:
+     finite, median error under 5 km, K3 and K2 launched.
 The last two lines are the card's nvidia-smi line and the device JSON
 line; the kernels' JSON record comes before them.  Needs torch with CUDA
 and nvcc; imports no JAX.
@@ -54,10 +72,14 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAM_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_stream_seed1.npz")
 SIM_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_sim_seed1.npz")
+LONGARC_FIXTURE = os.path.join(ROOT, "tests", "data",
+                               "torch_longarc_seed1.npz")
 K1_SOURCE = "vinsat_tpu_torch/kernels/csrc/tridiag_pcr.cu"
 K1_REPLACES = "vinsat_tpu/kernels/tridiag_pallas.py:157"
 K3_SOURCE = "vinsat_tpu_torch/kernels/csrc/visible_count.cu"
 K3_REPLACES = "vinsat_tpu/kernels/matching.py:49"
+K2_SOURCE = "vinsat_tpu_torch/kernels/csrc/normal_eq.cu"
+K2_REPLACES = "vinsat_tpu/kernels/normal_eq.py:54"
 DURATION_S = 10800
 # H100 SXM data-sheet peaks at 700 W: f64 and f32 outside the tensor
 # cores, HBM3 bandwidth
@@ -132,6 +154,27 @@ def _alternate(plain, kernel, reps: int = 20):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
+def _device_profile(fn):
+    """Run fn once under torch.profiler, tracing the device only (host-op
+    events would multiply the trace's size): (host wall s, {device kernel
+    or copy name: (count, device µs)}); the dict is empty where the
+    profiler sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    per = {e.key: (e.count, e.self_device_time_total)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    return wall, per
+
+
 def _bound_ms(ops: float, peak: float, nbytes: float):
     """The least time for `ops` operations at `peak` and `nbytes` at the
     memory rate: (ms, what bounds it)."""
@@ -184,6 +227,9 @@ def _fixture_draws(fx, mode):
                                  g("score"), g("noise"), g("conf")))
 
 
+T_START = time.time()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -194,9 +240,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from vinsat_tpu_torch import pipeline
     from vinsat_tpu_torch.core import dynamics
+    from vinsat_tpu_torch.dist import long_arc, mesh
     from vinsat_tpu_torch.estimation import ba, ingest, refine, window
     from vinsat_tpu_torch.evalx import ate
-    from vinsat_tpu_torch.kernels import _build, tridiag_pcr, visible_count
+    from vinsat_tpu_torch.kernels import (_build, normal_eq, tridiag_pcr,
+                                          visible_count)
     from vinsat_tpu_torch.sim import camera, detections, mgrs
 
     fx = np.load(STREAM_FIXTURE)
@@ -206,6 +254,9 @@ def main() -> int:
     plain = tridiag_pcr.block_tridiag_solve_pcr_plain
     k3 = visible_count.visible_count
     k3_plain = visible_count.visible_count_plain
+    k2 = normal_eq.assemble_normal_eq
+    k2_plain = normal_eq.assemble_normal_eq_plain
+    la_fx = np.load(LONGARC_FIXTURE)
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -214,14 +265,14 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
 
-    # 2. build both kernels at once
+    # 2. build every kernel at once
+    kernels = ("tridiag_pcr", "normal_eq", "visible_count")
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(_build.load, n)
-                  for n in ("tridiag_pcr", "visible_count")]:
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for f in [pool.submit(_build.load, n) for n in kernels]:
             f.result()
-    print(f"build: tridiag_pcr + visible_count in {time.time() - t0:.2f} s")
-    for n in ("tridiag_pcr", "visible_count"):
+    print(f"build: {' + '.join(kernels)} in {time.time() - t0:.2f} s")
+    for n in kernels:
         for line in _build.build_logs.get(n, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {n}: {line.strip()}")
@@ -459,6 +510,139 @@ def main() -> int:
            (nw9, float(res9.errors[-1])))
     _check(k3_launches > 0, "K3 was not launched on the main path")
 
+    # 10. K2 against its plain twin at the long arc's shape
+    n_knots = len(la_fx["states0"])
+    rng = np.random.default_rng(10)
+    w_np = rng.random((n_knots, 4))
+    w_np[::5, -1] = 0.0  # empty observation slots
+    k2_args = [torch.as_tensor(a, device=dev) for a in (
+        rng.normal(size=(n_knots, 4, 2, 9)) * 50.0,
+        rng.normal(size=(n_knots, 4, 2)), w_np)]
+    k2_err = 0.0
+    for f32, tol in ((False, 1e-12), (True, 1e-5)):
+        G, g = k2(*k2_args, f32=f32)
+        G_p, g_p = k2_plain(*k2_args, f32=f32)
+        torch.cuda.synchronize()
+        err = max(float((G - G_p).abs().max() / G_p.abs().max()),
+                  float((g - g_p).abs().max() / g_p.abs().max()))
+        print(f"K2 N={n_knots} D=4 f64{' (f32 sums)' if f32 else ''}: rel "
+              f"err vs plain {err:.3e}")
+        _check(np.isfinite(err) and err <= tol, ("K2", f32, err))
+        if not f32:
+            k2_err = max(float((G - G_p).abs().max()),
+                         float((g - g_p).abs().max()))
+    k2_ms, k2_plain_ms, r = _alternate(lambda: k2_plain(*k2_args),
+                                       lambda: k2(*k2_args))
+    J2, r2, w2 = k2_args
+    JW2 = J2 * w2[..., None, None]
+    k2_lib_ms = _time_ms(lambda: (torch.einsum("ndki,ndkj->nij", JW2, J2),
+                                  torch.einsum("ndki,ndk->ni", JW2, r2)))
+    rows = 2 * 4
+    k2_bound = _bound_ms(n_knots * rows * (9 + 2 * 90), PEAK_F64,
+                         8 * (sum(a.numel() for a in k2_args)
+                              + n_knots * 90))
+    print(f"K2 time N={n_knots} D=4 f64: kernel {k2_ms:.4f} ms ({r[1]:.4f}, "
+          f"{r[2]:.4f}), plain {k2_plain_ms:.4f} ms ({r[0]:.4f}, "
+          f"{r[3]:.4f}), the two einsums {k2_lib_ms:.4f} ms, bound "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]})  [{smi}]")
+
+    # 11. the long arc from JAX's data
+    n_arc = int(la_fx["n_arc"])
+    la_kw = json.loads(str(la_fx["problem_kwargs"]))
+    solve_kw = json.loads(str(la_fx["solve_kwargs"]))
+    t0 = time.time()
+    prob, gt_la, kt_la, n_real = long_arc.build_sharded_problem(
+        la_fx, n_arc=n_arc, device=dev, **la_kw)
+    t_build = time.time() - t0
+    st0 = prob.states.reshape(-1, 10).cpu().numpy()
+    d0 = float(np.abs(st0 - la_fx["states0"]).max()
+               / np.abs(la_fx["states0"]).max())
+    print(f"long arc: {n_real} knots of {len(st0)} over {n_arc} shards, "
+          f"built in {t_build:.2f} s, initial states rel err vs JAX "
+          f"{d0:.3e}")
+    _check(n_real == int(la_fx["n_real"]) and d0 <= 1e-12, (n_real, d0))
+    _check(np.array_equal(kt_la, la_fx["knot_times"]), "knot times")
+    la_mesh = mesh.make_mesh(1, n_arc, device=dev)
+    res1 = long_arc.solve_long_arc(la_mesh, prob, gt_la, kt_la, n_real,
+                                   num_iters=1,
+                                   init_iters=solve_kw["init_iters"])
+    d1 = float(np.abs(res1.states - la_fx["states_iter1"]).max()
+               / np.abs(la_fx["states_iter1"]).max())
+    print(f"long arc: states after iteration 1 rel err vs JAX {d1:.3e}")
+    _check(d1 <= 1e-9, d1)
+    solve.launches = k2.launches = k3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res11 = long_arc.solve_long_arc(la_mesh, prob, gt_la, kt_la, n_real,
+                                    **solve_kw)
+    wall_11 = time.time() - t0
+    k2_launches = k2.launches
+    _check(k2_launches == solve_kw["num_iters"],
+           ("K2 launches on the long arc", k2_launches))
+    _check(solve.launches == k3.launches == 0,
+           (solve.launches, k3.launches))
+    t0 = time.time()
+    long_arc.solve_long_arc(la_mesh, prob, gt_la, kt_la, n_real, **solve_kw)
+    wall_11b = time.time() - t0
+    e_jax = la_fx["errors_km"]
+    d_err = float(np.abs(res11.errors_km - e_jax).max())
+    med, med_jax = float(np.median(res11.errors_km)), float(np.median(e_jax))
+    print(f"long arc: {solve_kw['num_iters']} iterations "
+          f"({solve_kw['init_iters']} vision-only), median error {med:.6f} "
+          f"km (JAX {med_jax:.6f}), max {res11.errors_km.max():.6f} km "
+          f"(JAX {e_jax.max():.6f}), max |d error| vs JAX {d_err:.3e} km; "
+          f"K2 launches {k2_launches}; wall {wall_11:.2f} s, timed "
+          f"{wall_11b:.2f} s  [{smi}]")
+    _check(np.isfinite(res11.states).all(), "long arc finite")
+    _check(d_err <= 0.01 and abs(med - med_jax) <= 1e-3, (d_err, med))
+    # where the long arc's time goes: two iterations (one vision-only, one
+    # full) under the profiler; a whole solve's trace takes minutes to read
+    wall_p, per = _device_profile(lambda: long_arc.solve_long_arc(
+        la_mesh, prob, gt_la, kt_la, n_real, num_iters=2, init_iters=1))
+    if per:
+        n_dev = sum(c for c, _ in per.values()) / 2
+        busy = sum(t for _, t in per.values()) * 1e-6 / 2
+        k2_dev = [(c, t) for k, (c, t) in per.items() if "normal_eq" in k]
+        k2_us = (f"{k2_dev[0][1] / k2_dev[0][0]:.2f} µs per launch"
+                 if k2_dev else "not found")
+        top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
+        it_wall = wall_11b / solve_kw["num_iters"]
+        print(f"long arc profiled (2 iterations): {n_dev:.0f} device kernels "
+              f"and copies per iteration, device busy {1e3 * busy:.2f} ms per "
+              f"iteration: {100 * busy / it_wall:.1f}% of the unprofiled "
+              f"{1e3 * it_wall:.1f} ms per iteration "
+              f"({100 * busy / (wall_p / 2):.1f}% of the profiled); K2 device "
+              f"time {k2_us}  [{smi}]")
+        for name_k, (cnt, t_us) in top:
+            print(f"  {t_us * 1e-3:9.2f} ms  {cnt:7d}x  {name_k[:90]}")
+    else:
+        print("long arc profiled: the profiler saw no device activity; "
+              "device busy share not measured")
+
+    # 12. the port's own long arc
+    solve.launches = k2.launches = k3.launches = 0
+    t0 = time.time()
+    seq12 = pipeline.simulate_sequence(
+        int(la_fx["seed"]), device=dev,
+        **json.loads(str(la_fx["sim_kwargs"])))
+    wall_sim12 = time.time() - t0
+    prob12, gt12, kt12, n12 = long_arc.build_sharded_problem(
+        seq12, n_arc=n_arc, device=dev, **la_kw)
+    res12 = long_arc.solve_long_arc(la_mesh, prob12, gt12, kt12, n12,
+                                    **solve_kw)
+    wall_12 = time.time() - t0
+    k3_12, k2_12 = k3.launches, k2.launches
+    med12 = float(np.median(res12.errors_km))
+    print(f"own long arc (seed {int(la_fx['seed'])}): {len(seq12.det_rows)} rows, {n12} "
+          f"knots, median error {med12:.6f} km, max "
+          f"{res12.errors_km.max():.6f} km; sim {wall_sim12:.2f} s, sim + "
+          f"solve {wall_12:.2f} s; launches K3 {k3_12}, K2 {k2_12}  [{smi}]")
+    _check(np.isfinite(seq12.det_rows).all()
+           and np.isfinite(res12.states).all(), "own long arc finite")
+    _check(med12 < 5.0, med12)
+    _check(k3_12 > 0 and k2_12 > 0, (k3_12, k2_12))
+
+    print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
     k3_ms, k3_plain_ms, k3_bound = k3_times[torch.float64]
     print(json.dumps({"kernels": [
         {"name": "tridiag_pcr", "route": "cuda", "source": K1_SOURCE,
@@ -470,7 +654,12 @@ def main() -> int:
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None}]}))
+         "library_ms": None},
+        {"name": "normal_eq", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": k2_launches,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": k2_lib_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

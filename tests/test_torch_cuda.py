@@ -14,13 +14,20 @@ sqrt(Σ) (tests/test_torch_ba.py).
 
 K3 against its plain twin at the simulator's full size (F=10801 frames,
 L=7920 landmarks) in f64 and f32: counts equal exactly.
+
+K2 against its plain twin at the long arc's shape (2168 knots, D=4):
+relative 1e-12 in f64 (the same products summed in another order), 1e-5
+with f32=True or f32 inputs (f32 sums of 8 rows).  One arc-sharded LM step
+on the card (K2, Thomas and the SPIKE reduction) against the CPU: states
+relative 1e-9, as the single-chip step above.
 """
 import numpy as np
 import pytest
 import torch
 
+from vinsat_tpu_torch.dist import mesh, sharded_ba
 from vinsat_tpu_torch.estimation import ba
-from vinsat_tpu_torch.kernels import tridiag_pcr, visible_count
+from vinsat_tpu_torch.kernels import normal_eq, tridiag_pcr, visible_count
 
 
 def _cuda():
@@ -152,3 +159,87 @@ def test_visible_count_rejects_non_contiguous():
             b.t().contiguous().t(), torch.as_tensor(lon, device=dev),
             torch.as_tensor(lat, device=dev),
             torch.as_tensor(best, device=dev))
+
+
+def _k2_case(rng, N, D=4):
+    w = rng.random((N, D))
+    w[::5, -1] = 0.0
+    return rng.normal(size=(N, D, 2, 9)) * 50.0, rng.normal(size=(N, D, 2)), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,f32,tol", [(torch.float64, False, 1e-12),
+                                           (torch.float64, True, 1e-5),
+                                           (torch.float32, False, 1e-5)])
+def test_normal_eq_matches_plain(dtype, f32, tol):
+    dev = _cuda()
+    args = [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in _k2_case(np.random.default_rng(9), 2168)]
+    before = normal_eq.assemble_normal_eq.launches
+    G, g = normal_eq.assemble_normal_eq(*args, f32=f32)
+    torch.cuda.synchronize()
+    assert normal_eq.assemble_normal_eq.launches == before + 1
+    assert G.dtype == g.dtype == dtype
+    G_p, g_p = normal_eq.assemble_normal_eq_plain(*args, f32=f32)
+    assert _rel(G, G_p) < tol and _rel(g, g_p) < tol
+    # the kernel against the f64 sums of the same inputs
+    G64, _ = normal_eq.assemble_normal_eq_plain(*(a.double() for a in args))
+    assert _rel(G.double(), G64) < (1e-12 if tol < 1e-6 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(1, 4), (5, 1), (13, 12)])
+def test_normal_eq_ragged_shapes(N, D):
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev)
+            for a in _k2_case(np.random.default_rng(N), N, D)]
+    G, g = normal_eq.assemble_normal_eq(*args)
+    G_p, g_p = normal_eq.assemble_normal_eq_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(G, G_p) < 1e-12 and _rel(g, g_p) < 1e-12
+
+
+@pytest.mark.cuda
+def test_normal_eq_rejects_non_contiguous():
+    dev = _cuda()
+    J, r, w = (torch.as_tensor(a, device=dev)
+               for a in _k2_case(np.random.default_rng(10), 8))
+    with pytest.raises(ValueError):
+        normal_eq.assemble_normal_eq(J.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), r, w)
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_card_matches_cpu():
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    B, P, Nl, D = 2, 4, 6, 4
+    N = P * Nl
+    states = np.zeros((B, N, 10))
+    states[..., :3] = rng.normal(size=(B, N, 3)) * 30 + [6900.0, 0, 0]
+    q = rng.normal(size=(B, N, 4))
+    states[..., 3:7] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    states[..., 7:] = rng.normal(size=(B, N, 3)) * 0.1 + [0, 7.5, 0]
+    cum = np.zeros((B, N, 4))
+    cum[..., 3] = 1.0
+    pv = np.ones((B, N))
+    pv[:, -1] = 0.0
+    ground = states[..., None, :3] * 0.92
+    fields = dict(
+        states=states, gaps=np.full((B, N), 60.0), cum_rot=cum,
+        lm_xyz=ground + rng.normal(size=(B, N, D, 3)) * 30.0,
+        uv=rng.uniform(0, 2000, size=(B, N, D, 2)),
+        conf=rng.uniform(0.8, 1.0, size=(B, N, D)),
+        obs_valid=np.ones((B, N, D)), pair_valid=pv,
+        intrinsics=np.array([3547.85, 3547.85, 2304.0, 1296.0]))
+    params = ba.SolverParams(num_hops=2)
+    out = {}
+    for d in ("cpu", dev):
+        prob = sharded_ba.sharded_problem_from_numpy(fields, P, d)
+        step = sharded_ba.make_sharded_ba_step(mesh.make_mesh(1, P, d),
+                                               params)
+        out[str(d)] = step(3, torch.full((B,), 1e-4, dtype=torch.float64,
+                                         device=d), prob)
+    (st_c, lam_c), (st_g, lam_g) = out["cpu"], out[str(dev)]
+    assert torch.equal(lam_c, lam_g.cpu())
+    assert _rel(st_g.cpu(), st_c) < 1e-9

@@ -187,11 +187,13 @@ def rk4_step_with_jacobian(x, h):
 
 
 def _hop_sizes(gaps, num_hops: int, max_substep: float):
-    """Split per-knot gaps into <= num_hops steps of <= max_substep:
-    (num_hops, N) step sizes, full hops then one remainder hop."""
-    k = torch.arange(num_hops, dtype=gaps.dtype, device=gaps.device)[:, None]
-    full = torch.floor(gaps / max_substep)[None, :]
-    rem = torch.remainder(gaps, max_substep)[None, :]
+    """Split per-knot gaps (..., N) into <= num_hops steps of <=
+    max_substep: (num_hops, ..., N) step sizes, full hops then one
+    remainder hop."""
+    k = torch.arange(num_hops, dtype=gaps.dtype, device=gaps.device).reshape(
+        -1, *([1] * gaps.dim()))
+    full = torch.floor(gaps / max_substep)[None]
+    rem = torch.remainder(gaps, max_substep)[None]
     zero = torch.zeros_like(rem)
     return torch.where(k < full, torch.full_like(rem, max_substep),
                        torch.where(k == full, rem, zero))
@@ -218,26 +220,27 @@ def active_hops(gaps, max_substep: float) -> int:
 def propagate_gaps(pos, vel, gaps, num_hops: int = 16,
                    max_substep: float = 100.0):
     """Propagate each knot state forward by its own gap.  pos, vel
-    (..., N, 3); gaps (N,).  Returns (pos_pred, vel_pred)."""
+    (..., N, 3); gaps (..., N), broadcast against them.  Returns
+    (pos_pred, vel_pred)."""
     x = torch.cat([pos, vel], dim=-1)
     hs = _hop_sizes(gaps.to(x.dtype), num_hops, max_substep)
     for h in hs:
-        xn = rk4_step(x, h[:, None])
-        x = torch.where((h > 0)[:, None], xn, x)
+        xn = rk4_step(x, h[..., None])
+        x = torch.where((h > 0)[..., None], xn, x)
     return x[..., :3], x[..., 3:6]
 
 
 def propagate_gaps_with_jacobian(pos, vel, gaps, num_hops: int = 16,
                                  max_substep: float = 100.0):
     """propagate_gaps plus the 6x6 transition Jacobian J_i = d x_pred_i /
-    d x_i, chained per hop."""
+    d x_i, chained per hop.  Leading batch dims as in propagate_gaps."""
     x = torch.cat([pos, vel], dim=-1)
     hs = _hop_sizes(gaps.to(x.dtype), num_hops, max_substep)
     J = torch.eye(6, dtype=x.dtype, device=x.device).expand(
         *x.shape[:-1], 6, 6)
     for h in hs:
-        xn, A = rk4_step_with_jacobian(x, h[:, None])
-        active = (h > 0)[:, None]
+        xn, A = rk4_step_with_jacobian(x, h[..., None])
+        active = (h > 0)[..., None]
         x = torch.where(active, xn, x)
         J = torch.where(active[..., None], A @ J, J)
     return x[..., :3], x[..., 3:6], J

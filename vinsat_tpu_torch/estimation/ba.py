@@ -169,6 +169,39 @@ def block_tridiag_solve(D, U, b):
     return block_tridiag_solve_blockrhs(D, U, b[..., None])[..., 0]
 
 
+def block_tridiag_solve_multi(D, U, B):
+    """block_tridiag_solve with a matrix RHS: B (..., N, k, r) -> X."""
+    return block_tridiag_solve_blockrhs(D, U, B)
+
+
+def _tridiag_general(Dr, Ur, Lr, br):
+    """General (nonsymmetric) block-tridiagonal Thomas with partial
+    pivoting in each row's block solve: Lr[c] couples row c to row c-1
+    (Lr[..., 0] ignored), Ur[c] couples row c to c+1.  Dr, Lr
+    (..., C, k, k); Ur (..., C-1, k, k); br (..., C, k) -> (..., C, k)."""
+    C, k = Dr.shape[-3], Dr.shape[-1]
+    C_prev = torch.zeros_like(Lr[..., 0, :, :])
+    d_prev = torch.zeros_like(br[..., 0, :])
+    Cs, ds = [], []
+    for c in range(C):
+        Lt = Lr[..., c, :, :]
+        Ut = Ur[..., c, :, :] if c < C - 1 else torch.zeros_like(Lt)
+        denom = Dr[..., c, :, :] - Lt @ C_prev
+        rhs = torch.cat(
+            [Ut, (br[..., c, :] - (Lt @ d_prev[..., None])[..., 0])[..., None]],
+            dim=-1)
+        sol = gj_solve_small(denom, rhs, pivot=True)
+        C_prev, d_prev = sol[..., :k], sol[..., k]
+        Cs.append(C_prev)
+        ds.append(d_prev)
+    xs = [None] * C
+    x_next = torch.zeros_like(d_prev)
+    for c in reversed(range(C)):
+        x_next = ds[c] - (Cs[c] @ x_next[..., None])[..., 0]
+        xs[c] = x_next
+    return torch.stack(xs, dim=-2)
+
+
 # The JAX package's f64 "auto" solve takes the plain scan below 64 rows
 # (vinsat_tpu/estimation/ba.py:258-266, _auto_chunks: 1 chunk below 128).
 PCR_MIN_N = 64

@@ -6,9 +6,10 @@ tangent: [dpos(3), dphi(3), dvel(3)].  Every Jacobian is analytic in the
 reference's Gq-lift convention (no 1/2 factor), exactly as in the JAX
 package.
 
-`project_landmarks` and `dynamics_factor(with_jacobian=False)` broadcast
-over leading batch dimensions of `states` (the port's batched λ search
-evaluates K candidate state sets at once, where the JAX package vmaps).
+`project_landmarks` and `dynamics_factor` broadcast over leading batch
+dimensions of `states` (the port's batched λ search evaluates K candidate
+state sets at once, and the arc-sharded step runs every orbit and shard at
+once, where the JAX package vmaps and shard_maps).
 `lax.associative_scan` becomes `_inclusive_scan`, a log-depth
 Hillis–Steele scan.
 """
@@ -134,7 +135,7 @@ def reprojection_factor(states, landmarks_xyz, ii, intrinsics) -> ReprojFactor:
 class DynamicsFactor(NamedTuple):
     """res_pv (N-1, 6), res_q (N-1,), A / B (N-1, 6, 9), qgrad (N, 9),
     Hq_diag (N, 9, 9), Hq_off (N-1, 9, 9), state_pred (N, 10) — the fields
-    of the JAX DynamicsFactor."""
+    of the JAX DynamicsFactor, after the inputs' leading batch dims."""
 
     res_pv: torch.Tensor
     res_q: torch.Tensor
@@ -149,40 +150,44 @@ class DynamicsFactor(NamedTuple):
 def _quat_residual_terms(q, cum_rot, quat_coeff, valid_pair):
     """Exact gradient + block-tridiagonal Hessian of
         sum_t quat_coeff * (1 - |<q_t ⊗ c_t, q_{t+1}>|)
-    in the Gq-lift convention (derivation in the JAX module)."""
-    N = q.shape[0]
+    in the Gq-lift convention (derivation in the JAX module).  q, cum_rot
+    (..., N, 4) and valid_pair (..., N-1) broadcast over leading dims."""
+    N = q.shape[-2]
     res_q, q_hat, d = _quat_residual(q, cum_rot, quat_coeff, valid_pair)
     s = torch.sign(d) * valid_pair
     k = quat_coeff
+    batch = s.shape[:-1]
+    opts = dict(dtype=q.dtype, device=q.device)
 
-    M = right_mult_matrix(cum_rot[:-1])  # (N-1, 4, 4)
-    g_t = -k * s[:, None] * torch.einsum("tji,tj->ti", M, q[1:])
-    g_t1 = -k * s[:, None] * q_hat
+    M = right_mult_matrix(cum_rot[..., :-1, :])  # (..., N-1, 4, 4)
+    g_t = -k * s[..., None] * torch.einsum("...tji,...tj->...ti", M,
+                                           q[..., 1:, :])
+    g_t1 = -k * s[..., None] * q_hat
 
-    g_amb = torch.zeros((N, 4), dtype=q.dtype, device=q.device)
-    g_amb[:-1] += g_t
-    g_amb[1:] += g_t1
+    g_amb = torch.zeros(batch + (N, 4), **opts)
+    g_amb[..., :-1, :] += g_t
+    g_amb[..., 1:, :] += g_t1
 
-    Gq = quat.attitude_jacobian(q)  # (N, 4, 3)
-    qgrad3 = torch.einsum("nij,ni->nj", Gq, g_amb)
-    qgrad = torch.zeros((N, 9), dtype=q.dtype, device=q.device)
-    qgrad[:, 3:6] = qgrad3
+    Gq = quat.attitude_jacobian(q)  # (..., N, 4, 3)
+    qgrad3 = torch.einsum("...nij,...ni->...nj", Gq, g_amb)
+    qgrad = torch.zeros(batch + (N, 9), **opts)
+    qgrad[..., 3:6] = qgrad3
 
     Hdiag3 = _dGqT_g(g_amb) @ Gq
-    cross = -k * s[:, None, None] * M.transpose(-1, -2)  # (N-1, 4, 4)
-    Hoff3 = Gq[:-1].transpose(-1, -2) @ cross @ Gq[1:]
+    cross = -k * s[..., None, None] * M.transpose(-1, -2)  # (..., N-1, 4, 4)
+    Hoff3 = Gq[..., :-1, :, :].transpose(-1, -2) @ cross @ Gq[..., 1:, :, :]
 
-    Hq_diag = torch.zeros((N, 9, 9), dtype=q.dtype, device=q.device)
-    Hq_diag[:, 3:6, 3:6] = Hdiag3
-    Hq_off = torch.zeros((N - 1, 9, 9), dtype=q.dtype, device=q.device)
-    Hq_off[:, 3:6, 3:6] = Hoff3
+    Hq_diag = torch.zeros(batch + (N, 9, 9), **opts)
+    Hq_diag[..., 3:6, 3:6] = Hdiag3
+    Hq_off = torch.zeros(batch + (N - 1, 9, 9), **opts)
+    Hq_off[..., 3:6, 3:6] = Hoff3
     return res_q, qgrad, Hq_diag, Hq_off, q_hat
 
 
 def _quat_residual(q, cum_rot, quat_coeff, valid_pair):
     """res_q, q_hat = q_t ⊗ c_t and d = <q_hat_t, q_{t+1}>, batched over
-    leading dims of q (..., N, 4)."""
-    q_hat = quat.multiply(q[..., :-1, :], cum_rot[:-1])
+    leading dims of q (..., N, 4) (and of cum_rot, valid_pair)."""
+    q_hat = quat.multiply(q[..., :-1, :], cum_rot[..., :-1, :])
     d = (q_hat * q[..., 1:, :]).sum(-1)
     return quat_coeff * (1.0 - d.abs()) * valid_pair, q_hat, d
 
@@ -191,9 +196,9 @@ def dynamics_factor(states, gaps, cum_rot, quat_coeff, vel_coeff,
                     valid_pair=None, num_hops: int = 16,
                     max_substep: float = 100.0,
                     with_jacobian: bool = True) -> DynamicsFactor:
-    """Dynamics factor over consecutive knots.  states (..., N, 10) — a
-    leading batch only with with_jacobian=False; gaps (N,) seconds to the
-    next knot; cum_rot (N, 4); valid_pair (N-1,) 0/1 mask."""
+    """Dynamics factor over consecutive knots.  states (..., N, 10); gaps
+    (..., N) seconds to the next knot; cum_rot (..., N, 4); valid_pair
+    (..., N-1) 0/1 mask — leading dims broadcast against each other."""
     N = states.shape[-2]
     dtype, dev = states.dtype, states.device
     pos, q, vel = states[..., :3], states[..., 3:7], states[..., 7:10]
@@ -207,7 +212,7 @@ def dynamics_factor(states, gaps, cum_rot, quat_coeff, vel_coeff,
         p_pred, v_pred = dynamics.propagate_gaps(
             pos, vel, gaps, num_hops=num_hops, max_substep=max_substep)
 
-    vp = valid_pair[:, None]
+    vp = valid_pair[..., None]
     res_pv = torch.cat(
         [
             (p_pred[..., :-1, :] - pos[..., 1:, :]) * vp,
@@ -225,21 +230,21 @@ def dynamics_factor(states, gaps, cum_rot, quat_coeff, vel_coeff,
 
     res_q, qgrad, Hq_diag, Hq_off, q_hat = _quat_residual_terms(
         q, cum_rot, quat_coeff, valid_pair)
-    q_pred = torch.cat([q_hat, q[-1:]], dim=0)
+    q_pred = torch.cat([q_hat, q[..., -1:, :]], dim=-2)
     state_pred = torch.cat([p_pred, q_pred, v_pred], dim=-1)
 
     # res_pv[t] wrt knot t: weighted transition Jacobian; wrt knot t+1: -W
-    Jt = Jfull[:-1]  # (N-1, 6, 6)
+    Jt = Jfull[..., :-1, :, :]  # (..., N-1, 6, 6)
     W = torch.ones(6, dtype=dtype, device=dev)
     W[3:] = vel_coeff
     A6 = W[None, :, None] * Jt * vp[..., None]
-    A = torch.zeros((N - 1, 6, 9), dtype=dtype, device=dev)
-    A[:, :, 0:3] = A6[:, :, 0:3]
-    A[:, :, 6:9] = A6[:, :, 3:6]
-    B = torch.zeros((N - 1, 6, 9), dtype=dtype, device=dev)
+    A = torch.zeros(A6.shape[:-1] + (9,), dtype=dtype, device=dev)
+    A[..., 0:3] = A6[..., 0:3]
+    A[..., 6:9] = A6[..., 3:6]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    B[:, 0:3, 0:3] = -eye3 * vp[..., None]
-    B[:, 3:6, 6:9] = -vel_coeff * eye3 * vp[..., None]
+    B = torch.zeros(A6.shape[:-2] + (6, 9), dtype=dtype, device=dev)
+    B[..., 0:3, 0:3] = -eye3 * vp[..., None]
+    B[..., 3:6, 6:9] = -vel_coeff * eye3 * vp[..., None]
     return DynamicsFactor(res_pv, res_q, A, B, qgrad, Hq_diag, Hq_off,
                           state_pred)
 
