@@ -3,6 +3,9 @@
 GPU: the quickest proof that the port still starts and is right there.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --k1-times [DIR]
+                  # only K1's times across N, of the checkout at DIR
+                  # (default: this one), e.g. a parent commit's kernel
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device: the card's name and power limit;
@@ -12,13 +15,17 @@ Phases (each prints its lines; any failure exits non-zero):
   3. K1 against its plain PyTorch twin on the card (B=9 λ candidates,
      N in {5, 64, 257, 448}, Jacobi-scaled blocks): relative error
      <= 1e-9 in f64 (also against the Thomas solve) and <= 1e-4 in f32;
-     at N=448, B=9 in f64 the kernel's and the twin's times, and that of
-     torch.linalg.solve on the assembled dense (9N x 9N) systems;
+     the kernel's and the twin's times and the bound at B=9 in f64 for
+     N in {64, 128, 256, 448, 1024} and at N=448 in f32, with the device
+     kernels of one call under torch.profiler (must be 1: one cooperative
+     launch); at N=448 in f64 that of torch.linalg.solve on the assembled
+     dense (9N x 9N) systems;
   4. the streaming slice: orbit determination of the committed 10800 s
      fixture (tests/data/torch_stream_seed1.npz) through the port's
      run_streaming on cuda in f64, once cold and twice timed, held to the
      JAX package's result in the fixture (window count, time to 5 km,
-     final error within 0.01 km), with K1's launch count from that run;
+     final error within 0.01 km), with K1's launch count from that run
+     and the (B, N) shapes it was launched at;
   5. the tail refinement (refine_terminal, rigid chain) of the stream's
      final states over the whole arc on cuda — the bench arc ends on a
      detection knot, so the stream itself never runs it — against the JAX
@@ -62,6 +69,7 @@ and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -81,6 +89,7 @@ K3_REPLACES = "vinsat_tpu/kernels/matching.py:49"
 K2_SOURCE = "vinsat_tpu_torch/kernels/csrc/normal_eq.cu"
 K2_REPLACES = "vinsat_tpu/kernels/normal_eq.py:54"
 DURATION_S = 10800
+K1_TIME_N = (64, 128, 256, 448, 1024)
 # H100 SXM data-sheet peaks at 700 W: f64 and f32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_F64, PEAK_F32, PEAK_BYTES = 34e12, 67e12, 3.35e12
@@ -197,6 +206,72 @@ def _pcr_flops(B: int, N: int) -> float:
     return B * N * (levels * (gj + update) + final)
 
 
+def _k1_device(solve, args):
+    """One K1 call under torch.profiler: (device kernels, their device µs);
+    (None, None) where the profiler sees no device activity."""
+    solve(*args)
+    _, per = _device_profile(lambda: solve(*args))
+    if not per:
+        return None, None
+    return (sum(c for c, _ in per.values()),
+            sum(t for _, t in per.values()))
+
+
+def _k1_times(solve, plain, dev, smi):
+    """K1's kernel and plain-twin times (CUDA events, in turns) and its
+    bound at B=9, in f64 at each N of K1_TIME_N and in f32 at N=448, with
+    the device kernels of one profiled call and their device time: {(N,
+    dtype name): (ms, plain ms, (bound ms, bound by), kernels per call)}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    rows = {}
+    cases = [(N, torch.float64) for N in K1_TIME_N] + [(448, torch.float32)]
+    for N, dtype in cases:
+        D, U, b = (torch.as_tensor(a, dtype=dtype, device=dev)
+                   for a in _problem(rng, 9, N))
+        ms, p_ms, r = _alternate(lambda: plain(D, U, b),
+                                 lambda: solve(D, U, b))
+        bnd = _bound_ms(_pcr_flops(9, N),
+                        PEAK_F64 if dtype == torch.float64 else PEAK_F32,
+                        D.element_size() * (D.numel() + U.numel()
+                                            + 2 * b.numel()))
+        n_dev, dev_us = _k1_device(solve, (D, U, b))
+        tag = str(dtype)[6:]
+        print(f"K1 time N={N} B=9 {tag}: kernel {ms:.4f} ms ({r[1]:.4f}, "
+              f"{r[2]:.4f}), plain {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), {n_dev} device kernels "
+              f"per call, {dev_us if dev_us is None else f'{dev_us:.2f}'} "
+              f"µs of device time (one profiled call)"
+              f"  [{smi}]")
+        rows[(N, tag)] = (ms, p_ms, bnd, n_dev)
+    return rows
+
+
+def k1_times_only(root) -> int:
+    """K1's times across N (as in phase 3) for the port at `root`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    from vinsat_tpu_torch.kernels import _build, tridiag_pcr
+
+    smi = _smi()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    print(f"K1 of {os.path.dirname(os.path.abspath(tridiag_pcr.__file__))}")
+    _build.load("tridiag_pcr")
+    for line in _build.build_logs.get("tridiag_pcr", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas tridiag_pcr: {line.strip()}")
+    _k1_times(tridiag_pcr.block_tridiag_solve_pcr,
+              tridiag_pcr.block_tridiag_solve_pcr_plain,
+              torch.device("cuda"), smi)
+    return 0
+
+
 def _rows_check(tag, got, want, lonlat_tol):
     """Rows of the port against JAX's: count and frames equal, lon / lat
     within lonlat_tol deg, pixels within 1e-6 px, confidence 1e-12."""
@@ -276,6 +351,9 @@ def main() -> int:
         for line in _build.build_logs.get(n, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {n}: {line.strip()}")
+    print(f"K1 resident warps (one cooperative grid): "
+          f"{tridiag_pcr.resident_warps(torch.float64)} in f64, "
+          f"{tridiag_pcr.resident_warps(torch.float32)} in f32")
 
     # 3. K1 against its plain twin (and Thomas) on the card
     rng = np.random.default_rng(0)
@@ -298,10 +376,12 @@ def main() -> int:
                 _check(err_t <= tol, (N, err_t))
             print(line)
             _check(np.isfinite(err) and err <= tol, (N, dtype, err))
+    k1_rows = _k1_times(solve, plain, dev, smi)
+    for key, row in k1_rows.items():
+        _check(row[3] == 1, ("K1 device kernels per call", key, row[3]))
+    k1_ms, k1_plain_ms, k1_bound, _ = k1_rows[(448, "float64")]
     D, U, b = (torch.as_tensor(a, device=dev)
                for a in _problem(rng, 9, 448))
-    k1_ms, k1_plain_ms, r = _alternate(lambda: plain(D, U, b),
-                                       lambda: solve(D, U, b))
     # the library yardstick: torch.linalg.solve on the dense systems,
     # through each of torch's linear-algebra backends; the faster counts
     A, rhs = _dense(D, U), b.reshape(9, -1, 1)
@@ -315,10 +395,8 @@ def main() -> int:
     torch.backends.cuda.preferred_linalg_library("default")
     k1_lib_ms = min(lib.values())
     del A
-    k1_bound = _bound_ms(_pcr_flops(9, 448), PEAK_F64,
-                         8 * (D.numel() + U.numel() + 2 * b.numel()))
-    print(f"K1 time N=448 B=9 f64: kernel {k1_ms:.4f} ms ({r[1]:.4f}, "
-          f"{r[2]:.4f}), plain {k1_plain_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
+    print(f"K1 N=448 B=9 f64: kernel {k1_ms:.4f} ms, plain "
+          f"{k1_plain_ms:.4f} ms, "
           f"dense torch.linalg.solve {lib['cusolver']:.4f} ms (cusolver) / "
           f"{lib['magma']:.4f} ms (magma) (rel diff {err_d:.2e}), bound "
           f"{k1_bound[0]:.4f} ms ({k1_bound[1]})  "
@@ -335,8 +413,19 @@ def main() -> int:
     det, orbit = pipeline.stream_inputs(fx)
     prep, nw = n_windows(det, orbit, seed)
     solve.launches = k3.launches = 0
+    k1_shapes = collections.Counter()
+    k1_launch = tridiag_pcr._launch
+
+    def _recording_launch(D, U, b):
+        k1_shapes[tuple(D.shape[:2])] += 1
+        return k1_launch(D, U, b)
+
+    tridiag_pcr._launch = _recording_launch
     t0 = time.time()
-    res = pipeline.run_streaming(fx, seed=seed, cfg=cfg, device=dev)
+    try:
+        res = pipeline.run_streaming(fx, seed=seed, cfg=cfg, device=dev)
+    finally:
+        tridiag_pcr._launch = k1_launch
     cold = time.time() - t0
     k1_launches = solve.launches
     walls = []
@@ -361,7 +450,10 @@ def main() -> int:
     print(f"stream: max |d error| vs JAX "
           f"{np.abs(res.errors - fx['errors']).max():.3e} km")
     _check(k1_launches > 0, "K1 was not launched on the main path")
-    print(f"stream: K1 launches {k1_launches}")
+    print(f"stream: K1 launches {k1_launches}, by (B, N): "
+          + ", ".join(f"{bn[0]}x{bn[1]}: {c}"
+                      for bn, c in sorted(k1_shapes.items())))
+    _check(sum(k1_shapes.values()) == k1_launches, k1_shapes)
     wall = min(walls)
     print(f"stream wall: cold {cold:.2f} s, timed {walls[0]:.2f} s / "
           f"{walls[1]:.2f} s -> {DURATION_S / wall:.1f} frames/s  [{smi}]")
@@ -649,7 +741,9 @@ def main() -> int:
          "replaces": K1_REPLACES, "launches": k1_launches,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": k1_lib_ms},
+         "library_ms": k1_lib_ms,
+         "design": "one cooperative launch, a grid barrier per PCR level",
+         "device_kernels_per_call": k1_rows[(448, "float64")][3]},
         {"name": "visible_count", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain_ms,
@@ -668,4 +762,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--k1-times":
+        sys.exit(k1_times_only(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

@@ -6,7 +6,10 @@ alone:
 
 K1 against its plain PyTorch twin on the same tensors: relative 1e-9 in
 f64, 1e-4 in f32 (pivot-free elimination on Jacobi-scaled blocks; f32
-roundoff over ~9 levels).  One BA iteration on the card (kernel path)
+roundoff over ~9 levels), from one block row per warp up to N=4097 (more
+rows than resident warps), with U batched or shared; one K1 call captured
+in a CUDA graph and replayed on new inputs equals the eager call.  One BA
+iteration on the card (kernel path)
 against the CPU (plain path): states relative 1e-9 (the two differ in
 summation order, and index_add_ sums with atomics on the card); the trial
 residual mean 1e-8, since it weighs differences of ~7000 km positions by
@@ -49,18 +52,60 @@ def _rel(got, want) -> float:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shared_u", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("N", [1, 5, 64, 257, 448])
-def test_kernel_matches_plain(N, dtype, tol):
+@pytest.mark.parametrize("B,N", [(9, 1), (9, 5), (1, 64), (9, 64), (9, 257),
+                                 (9, 448), (9, 1024), (9, 4097)])
+def test_kernel_matches_plain(B, N, dtype, tol, shared_u):
     dev = _cuda()
     D, U, b = (torch.as_tensor(a, dtype=dtype, device=dev)
-               for a in _problem(np.random.default_rng(N), 9, N))
+               for a in _problem(np.random.default_rng(N), B, N))
+    if shared_u:
+        U = U[0].contiguous()
+    if N >= 1024:  # more rows than resident warps: the grid-stride path
+        assert B * N > tridiag_pcr.resident_warps(dtype, dev)
     before = tridiag_pcr.block_tridiag_solve_pcr.launches
     got = tridiag_pcr.block_tridiag_solve_pcr(D, U, b)
     torch.cuda.synchronize()
     assert tridiag_pcr.block_tridiag_solve_pcr.launches == before + 1
     assert _rel(got, tridiag_pcr.block_tridiag_solve_pcr_plain(D, U, b)) < tol
+
+
+@pytest.mark.cuda
+def test_kernel_counts_one_launch_per_call():
+    dev = _cuda()
+    D, U, b = (torch.as_tensor(a, device=dev)
+               for a in _problem(np.random.default_rng(1), 9, 448))
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    for n in range(1, 4):
+        before = solve.launches
+        solve(D, U, b)
+        assert solve.launches == before + 1, n
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_kernel_replays_in_cuda_graph():
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    D, U, b = (torch.as_tensor(a, device=dev) for a in _problem(rng, 9, 448))
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (build, occupancy query)
+        solve(D, U, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x = solve(D, U, b)
+    for a, new in zip((D, U, b), _problem(rng, 9, 448)):
+        a.copy_(torch.as_tensor(new, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tridiag_pcr.block_tridiag_solve_pcr_plain(D, U, b)
+    assert _rel(x, want) < 1e-9
+    assert _rel(x, solve(D, U, b)) == 0.0
 
 
 @pytest.mark.cuda

@@ -6,6 +6,10 @@ it compiles in seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so <name>.cu
 
+Every kernel builds with these same flags: K1's grid-wide barrier
+(``cooperative_groups`` ``grid.sync()`` under a cooperative launch) needs
+no ``-rdc``.
+
 The library lands in ``build/torch_kernels/`` beside the package (the file
 name carries a hash of the source, so an edited source rebuilds), at the
 first call that needs it.  Nothing here runs at import time.

@@ -1,12 +1,12 @@
 // Block-tridiagonal solve by parallel cyclic reduction (PCR), batched, for
-// Hopper (sm_90a).  Plain C interface, loaded with ctypes by
-// vinsat_tpu_torch/kernels/tridiag_pcr.py.
+// Hopper (sm_90a): one persistent cooperative kernel per solve.  Plain C
+// interface, loaded with ctypes by vinsat_tpu_torch/kernels/tridiag_pcr.py.
 //
 // Replaces the TPU kernel vinsat_tpu/kernels/tridiag_pallas.py
 // (block_tridiag_solve_pallas, pallas_call at :178; body _kernel :125,
 // elimination _gj_refs :97).  Same algorithm and elimination order: at
 // level s every row i holds  L_i x_{i-s} + D_i x_i + U_i x_{i+s} = b_i;
-// one pivot-free Gauss-Jordan pass forms P = D^{-1} [L, U, b] for all rows,
+// one pivot-free Gauss-Jordan pass forms P_i = D_i^{-1} [L_i, U_i, b_i],
 // then
 //     D'_i = D_i - L_i PU_{i-s} - U_i PL_{i+s}
 //     b'_i = b_i - L_i Pb_{i-s} - U_i Pb_{i+s}
@@ -14,226 +14,333 @@
 // and s doubles; after ceil(log2 N) levels x_i = D_i^{-1} b_i.  Rows out of
 // range count as zero blocks (no padding to 128 as on the TPU lanes).
 //
-// What bounds it on this card: the level state.  Per row it is D, L, U
-// (3 x 81 values) + b, and P = D^{-1}[L, U, b] (2 x 81 + 9): 3.4 KB per
-// row in f64, 5.4 KB with the next level's copy, 21.8 MB of scratch at the
-// main path's B=9, N=448 — ~100x one SM's 227 KB of shared memory, so the
-// TPU design (everything resident in one core's VMEM across all levels)
-// does not carry over.  The state ping-pongs in
-// global memory instead; at these sizes it stays in the 50 MB L2, and the
-// work per level (~2.3k FMAs per row) is small, so a level costs about two
-// launch latencies.  The solve is latency-bound: 2 launches per level +
-// 2, i.e. 20 launches at N=448.
+// What bounds it on this card.  At the main path's B=9, N=448 in f64 the
+// solve is ~391 Mflop (9 levels x 4032 rows x (a 9 x 28 Gauss-Jordan + the
+// update's block products) + the final solve): 0.0115 ms at the 34 TFLOP/s
+// f64 peak.  The levels are sequential, each only ~10k flops a row, so the
+// time goes elsewhere: one grid-wide barrier per level (~1 us), and within
+// a level the data every lane must be handed.  A lane computes a whole
+// column of its row's new block, so it reads all of L and U (162 values)
+// and, in the Gauss-Jordan, 81 pivot-column values; shared memory and
+// shuffles deliver 128 bytes a clock per SM whatever the lanes share, so
+// at 31 rows an SM that is ~9 us a level.  The level state (3.4 KB a row
+// in f64, 13.6 MB at B=9, N=448) is ~60x one SM's shared memory, so the
+// TPU design (everything in one core's VMEM across levels) does not carry
+// over.
 //
-// What the design does about it: one warp owns one (batch, row).
-//   * Gauss-Jordan pass: lane c holds column c of the 9 x 28 augmented
-//     block [D | L | U | b] in 9 registers; each pivot step broadcasts the
-//     pivot column with __shfl_sync, so no shared memory and no
-//     serialisation across rows.  The arithmetic per element is the JAX
-//     kernel's: row_i = M_i / piv; M_r -= A_ri * row_i.
-//   * Update pass: the row's L_i, U_i are staged in shared memory once per
-//     warp; lanes 0-8 form D' columns, 9-17 L' columns, 18-26 U' columns,
-//     lane 27 b', each a 9-term ordered dot product as in _bmm_lanes.
-// Making it fast (fusing levels, keeping a block's rows in shared memory
-// or a thread-block cluster) is later work.
+// What the design does about it:
+//   * One launch: a cooperative grid sized to the co-resident limit, a
+//     warp per (batch, row), grid-stride where B*N exceeds the resident
+//     warps (4224 at 64 registers a thread).  cooperative_groups'
+//     grid.sync() takes the place of the launch boundaries: one barrier
+//     per level, ceil(log2 N) in all; it needs no -rdc.
+//   * Only P crosses rows, so only P is shared, double-buffered in global
+//     memory and read through L2 (__ldcg).  A row's own D, L, U, b are
+//     touched only by its warp and updated in place: in the warp's
+//     shared-memory slot when each warp owns at most one row, else in
+//     global scratch, staged through the slot for each row.
+//   * The update of level s and the Gauss-Jordan of the next level are one
+//     step: lane c holds column c of the augmented block [D | L | U | b]
+//     (lanes 0-8 D, 9-17 L, 18-26 U, 27 b), which is also the column the
+//     update produces, so the new block is formed in the registers the
+//     elimination runs on.  Every 9-vector (a block's column, a column of
+//     P) is padded to 16-byte multiples and moves in 16-byte accesses; the
+//     two neighbours' P columns are loaded at once, one parked in shared
+//     memory to spare registers.  Every lane runs the same ordered 9-term
+//     dot products (absent terms are zero), so the warp does not diverge.
+//   * Gauss-Jordan: each pivot step broadcasts the pivot column with
+//     __shfl_sync; the arithmetic per element is the JAX kernel's:
+//     row_i = M_i / piv; M_r -= A_ri * row_i.
+//   * After the last level each warp solves its own row, x_i = D_i^{-1} b_i,
+//     with no barrier.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int K = 9;
 constexpr int KK = K * K;
 constexpr int WARPS_PER_BLOCK = 8;
+constexpr int THREADS = 32 * WARPS_PER_BLOCK;
+// 4 blocks of 8 warps an SM: at most 64 registers a thread, so that one
+// warp per row still fits the main path's 4032 rows on 132 SMs
+constexpr int MIN_BLOCKS_PER_SM = 4;
+constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Level state: D, L, U blocks (R x 81 each) and b (R x 9), R = B * N.
 template <typename T>
-struct Level {
-  T* D;
-  T* L;
-  T* U;
-  T* b;
+struct Vec;  // the 16-byte vector of T
+template <>
+struct Vec<double> {
+  using type = double2;
+  __device__ static void put(const double2& v, double* o) {
+    o[0] = v.x;
+    o[1] = v.y;
+  }
+  __device__ static double2 get(const double* o) {
+    return make_double2(o[0], o[1]);
+  }
+};
+template <>
+struct Vec<float> {
+  using type = float4;
+  __device__ static void put(const float4& v, float* o) {
+    o[0] = v.x;
+    o[1] = v.y;
+    o[2] = v.z;
+    o[3] = v.w;
+  }
+  __device__ static float4 get(const float* o) {
+    return make_float4(o[0], o[1], o[2], o[3]);
+  }
 };
 
+// Layout, in values of T.  A 9-vector (a column of a block or of P) is
+// padded to LP values, so that it moves in NV 16-byte accesses.
 template <typename T>
-__host__ __device__ Level<T> level_at(T* base, int64_t R) {
-  Level<T> s;
-  s.D = base;
-  s.L = base + R * KK;
-  s.U = base + 2 * R * KK;
-  s.b = base + 3 * R * KK;
-  return s;
-}
+struct Lay {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int LP = (K + VEC - 1) / VEC * VEC;  // 10 (f64), 12 (f32)
+  static constexpr int NV = LP / VEC;
+  // a row's state: the 28 columns of [D | L | U | b], column k at k * LP
+  static constexpr int ROW = 28 * LP;
+  // a row's P: the columns of PL, then of PU, then Pb
+  static constexpr int PROW = (2 * K + 1) * LP;
+  // a warp's shared-memory slot: a row's state and a column per lane for
+  // the P of row i+s
+  static constexpr int STAGE = ROW;
+  static constexpr int SLOT = STAGE + 28 * LP;
+};
 
-// W0 from the inputs: L_i = U_{i-1}^T (zero at i=0), U_{N-1} = 0.
-template <typename T>
-__global__ void pcr_init(const T* __restrict__ D, const T* __restrict__ U,
-                         const T* __restrict__ b, Level<T> w, int64_t B,
-                         int64_t N, int64_t u_batch_stride) {
-  int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  int64_t R = B * N;
-  if (t >= R * KK) return;
-  int64_t g = t / KK;
-  int e = (int)(t % KK);
-  int r = e / K, c = e % K;
-  int64_t bi = g / N, i = g % N;
-  const T* Ub = U + bi * u_batch_stride;
-  w.D[t] = D[t];
-  w.U[t] = (i < N - 1) ? Ub[i * KK + e] : T(0);
-  w.L[t] = (i > 0) ? Ub[(i - 1) * KK + c * K + r] : T(0);
-  if (e < K) w.b[g * K + e] = b[g * K + e];
-}
-
-// P = D^{-1} [L, U, b] per (batch, row); with_lu == 0 solves D x = b only
-// (the final back-solve), writing x into Pb.
-template <typename T>
-__global__ void pcr_gauss_jordan(Level<T> w, T* __restrict__ PL,
-                                 T* __restrict__ PU, T* __restrict__ Pb,
-                                 int64_t R, int with_lu) {
-  int64_t g = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
-  int lane = threadIdx.x & 31;
-  if (g >= R) return;  // uniform across the warp
-  // lane c: 0-8 D col, 9-17 L col, 18-26 U col, 27 b; others idle
-  const T* src = nullptr;
-  int col = 0, stride = K;
-  if (lane < 9) {
-    src = w.D + g * KK;
-    col = lane;
-  } else if (lane < 18 && with_lu) {
-    src = w.L + g * KK;
-    col = lane - 9;
-  } else if (lane < 27 && with_lu) {
-    src = w.U + g * KK;
-    col = lane - 18;
-  } else if (lane == 27) {
-    src = w.b + g * K;
-    col = 0;
-    stride = 1;
-  }
-  T a[K];
+// v[0..LP) from p (16-byte aligned); l2: through L2 only (P written by
+// other SMs since the last barrier)
+template <typename T, bool l2>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[Lay<T>::LP]) {
+  using V = typename Vec<T>::type;
 #pragma unroll
-  for (int r = 0; r < K; ++r) a[r] = src ? src[r * stride + col] : T(0);
+  for (int k = 0; k < Lay<T>::NV; ++k) {
+    const V* q = reinterpret_cast<const V*>(p) + k;
+    Vec<T>::put(l2 ? __ldcg(q) : *q, v + k * Lay<T>::VEC);
+  }
+}
 
+// a[0..K) to p (16-byte aligned), zero padded
+template <typename T, int M>
+__device__ __forceinline__ void store_vec(T* p, const T (&a)[M]) {
+  using V = typename Vec<T>::type;
+  T v[Lay<T>::LP];
+#pragma unroll
+  for (int r = 0; r < Lay<T>::LP; ++r) v[r] = r < K ? a[r] : T(0);
+#pragma unroll
+  for (int k = 0; k < Lay<T>::NV; ++k)
+    reinterpret_cast<V*>(p)[k] = Vec<T>::get(v + k * Lay<T>::VEC);
+}
+
+// Pivot-free Gauss-Jordan of the 9 x 28 block held a column per lane; lane
+// i broadcasts the pivot column of step i.
+template <typename T>
+__device__ __forceinline__ void gauss_jordan(T (&a)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    T piv = __shfl_sync(FULL, a[i], i);  // D[i][i]: lane i holds column i
-    T row_i = a[i] / piv;
+    T f[K];  // the pivot column A[:, i] before this step
 #pragma unroll
-    for (int r = 0; r < K; ++r) {
-      T f = __shfl_sync(FULL, a[r], i);  // A[r][i] before this step
-      if (r != i) a[r] -= f * row_i;
-    }
+    for (int r = 0; r < K; ++r) f[r] = __shfl_sync(FULL, a[r], i);
+    T row_i = a[i] / f[i];
+#pragma unroll
+    for (int r = 0; r < K; ++r)
+      if (r != i) a[r] -= f[r] * row_i;
     a[i] = row_i;
   }
-
-  T* dst = nullptr;
-  if (lane >= 9 && lane < 18 && with_lu) {
-    dst = PL + g * KK;
-    col = lane - 9;
-  } else if (lane >= 18 && lane < 27 && with_lu) {
-    dst = PU + g * KK;
-    col = lane - 18;
-  } else if (lane == 27) {
-    dst = Pb + g * K;
-  }
-  if (dst) {
-#pragma unroll
-    for (int r = 0; r < K; ++r) dst[r * stride + col] = a[r];
-  }
 }
 
-// One PCR level: w (level s) + P -> nw (level 2s).
+// acc = M v for the 9 x 9 block M stored by columns at m: the same ordered
+// 9-term dot product per row as _bmm_lanes (the first term a product, then
+// j = 1..8 added in turn), formed a column of M at a time.
 template <typename T>
-__global__ void pcr_update(Level<T> w, const T* __restrict__ PL,
-                           const T* __restrict__ PU,
-                           const T* __restrict__ Pb, Level<T> nw, int64_t B,
-                           int64_t N, int64_t s) {
-  __shared__ T sm[WARPS_PER_BLOCK][2 * KK];
-  int wib = threadIdx.x >> 5;
-  int lane = threadIdx.x & 31;
-  int64_t g = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
-  if (g >= B * N) return;  // uniform across the warp
-  int64_t i = g % N;
-  bool has_m = i - s >= 0, has_p = i + s < N;
-  int64_t gm = g - s, gp = g + s;
-
-  T* Ls = sm[wib];
-  T* Us = sm[wib] + KK;
-  for (int e = lane; e < KK; e += 32) {
-    Ls[e] = w.L[g * KK + e];
-    Us[e] = w.U[g * KK + e];
-  }
-  __syncwarp();
-
-  if (lane < 9) {  // D'[:, c] = D - L PU_{i-s} - U PL_{i+s}
-    int c = lane;
-    T pm[K], pp[K];
+__device__ __forceinline__ void block_times(const T* m, const T (&v)[Lay<T>::LP],
+                                            T (&acc)[K]) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      pm[j] = has_m ? PU[gm * KK + j * K + c] : T(0);
-      pp[j] = has_p ? PL[gp * KK + j * K + c] : T(0);
-    }
+  for (int j = 0; j < K; ++j) {
+    T col[Lay<T>::LP];
+    load_vec<T, false>(m + j * Lay<T>::LP, col);
 #pragma unroll
-    for (int r = 0; r < K; ++r) {
-      T x = Ls[r * K] * pm[0];
-      T y = Us[r * K] * pp[0];
-#pragma unroll
-      for (int j = 1; j < K; ++j) {
-        x += Ls[r * K + j] * pm[j];
-        y += Us[r * K + j] * pp[j];
-      }
-      nw.D[g * KK + r * K + c] = (w.D[g * KK + r * K + c] - x) - y;
-    }
-  } else if (lane < 18) {  // L'[:, c] = -L PL_{i-s}
-    int c = lane - 9;
-    T pm[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) pm[j] = has_m ? PL[gm * KK + j * K + c] : T(0);
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      T x = Ls[r * K] * pm[0];
-#pragma unroll
-      for (int j = 1; j < K; ++j) x += Ls[r * K + j] * pm[j];
-      nw.L[g * KK + r * K + c] = -x;
-    }
-  } else if (lane < 27) {  // U'[:, c] = -U PU_{i+s}
-    int c = lane - 18;
-    T pp[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) pp[j] = has_p ? PU[gp * KK + j * K + c] : T(0);
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      T y = Us[r * K] * pp[0];
-#pragma unroll
-      for (int j = 1; j < K; ++j) y += Us[r * K + j] * pp[j];
-      nw.U[g * KK + r * K + c] = -y;
-    }
-  } else if (lane == 27) {  // b' = b - L Pb_{i-s} - U Pb_{i+s}
-    T pm[K], pp[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      pm[j] = has_m ? Pb[gm * K + j] : T(0);
-      pp[j] = has_p ? Pb[gp * K + j] : T(0);
-    }
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      T x = Ls[r * K] * pm[0];
-      T y = Us[r * K] * pp[0];
-#pragma unroll
-      for (int j = 1; j < K; ++j) {
-        x += Ls[r * K + j] * pm[j];
-        y += Us[r * K + j] * pp[j];
-      }
-      nw.b[g * K + r] = (w.b[g * K + r] - x) - y;
-    }
+    for (int r = 0; r < K; ++r) acc[r] = j == 0 ? col[r] * v[0] : acc[r] + col[r] * v[j];
   }
 }
 
+// D (B,N,9,9), U (B,N-1,9,9) or shared (u_stride 0), b (B,N,9) -> x.
+// state: B*N rows of Lay::ROW (used when B*N exceeds the grid's warps);
+// P0, P1: B*N rows of Lay::PROW each.  Dynamic shared memory: a slot of
+// Lay::SLOT values per warp.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
+pcr_solve(const T* __restrict__ D, const T* __restrict__ U,
+          const T* __restrict__ b, T* __restrict__ x, T* state, T* P0, T* P1,
+          int64_t B, int64_t N, int64_t u_stride) {
+  using L = Lay<T>;
+  using V = typename Vec<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  T* slot = reinterpret_cast<T*>(smem) + (threadIdx.x >> 5) * L::SLOT;
+  const bool active = lane < 28;
+  // this lane's stage (lanes 28-31 read lane 0's and write nothing)
+  T* stage = slot + L::STAGE + (active ? lane : 0) * L::LP;
+  // row indices fit 32 bits (solve() checks); element offsets are 64-bit
+  const int R = (int)(B * N), n = (int)N;
+  const int nwarps = gridDim.x * WARPS_PER_BLOCK;
+  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const bool resident = R <= nwarps;
+
+  // Lane l < 28 holds column l of the row's [D | L | U | b], at l * LP of
+  // its state.  Lanes 28-31 hold nothing and run along with zeros.
+  const int c = lane % K;
+  const int own = lane * L::LP;
+  const bool has_own = lane < 9 || lane == 27;  // D' and b' keep D and b
+  // where in a row's P this lane's column of the update reads the vector
+  // that multiplies L (row i-s) and U (row i+s); -1 where it is absent
+  int vm_off = -1, vp_off = -1;
+  if (lane < 9) {
+    vm_off = (K + c) * L::LP;  // PU_{i-s}
+    vp_off = c * L::LP;        // PL_{i+s}
+  } else if (lane < 18) {
+    vm_off = c * L::LP;  // PL_{i-s}
+  } else if (lane < 27) {
+    vp_off = (K + c) * L::LP;  // PU_{i+s}
+  } else if (lane == 27) {
+    vm_off = vp_off = 2 * K * L::LP;  // Pb_{i-s}, Pb_{i+s}
+  }
+  const int p_off = (lane - 9) * L::LP;  // this lane's column of its own P
+
+  // Level 0: the rows from the inputs (L_i = U_{i-1}^T, zero at i = 0;
+  // U_{N-1} = 0), then P^0.
+  for (int g = warp; g < R; g += nwarps) {
+    const int bi = g / n, i = g % n;
+    const T* Ub = U + bi * u_stride;
+    T a[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      T v = T(0);
+      if (lane < 9)
+        v = D[(int64_t)g * KK + r * K + c];
+      else if (lane < 18)
+        v = i > 0 ? Ub[(int64_t)(i - 1) * KK + c * K + r] : T(0);
+      else if (lane < 27)
+        v = i < n - 1 ? Ub[(int64_t)i * KK + r * K + c] : T(0);
+      else if (lane == 27)
+        v = b[(int64_t)g * K + r];
+      a[r] = v;
+    }
+    if (n > 1 && active) store_vec((resident ? slot : state + (int64_t)g * L::ROW) + own, a);
+    gauss_jordan(a);
+    if (n == 1) {
+      if (lane == 27) {
+#pragma unroll
+        for (int r = 0; r < K; ++r) x[(int64_t)g * K + r] = a[r];
+      }
+    } else if (lane >= 9 && active) {
+      store_vec(P0 + (int64_t)g * L::PROW + p_off, a);
+    }
+  }
+
+  // Levels s = 1, 2, 4, ...: one barrier each, then every row's update
+  // fused with its next Gauss-Jordan.
+  T* cur = P0;
+  T* nxt = P1;
+  for (int s = 1; s < n; s *= 2) {
+    grid.sync();
+    const bool last = 2 * s >= n;
+    for (int g = warp; g < R; g += nwarps) {
+      const int i = g % n;
+      if (!resident) {
+        const V* src = reinterpret_cast<const V*>(state + (int64_t)g * L::ROW);
+        for (int e = lane; e < L::ROW / L::VEC; e += 32)
+          reinterpret_cast<V*>(slot)[e] = src[e];
+      }
+      // both neighbours' P columns in flight at once; the one for U waits
+      // in this lane's stage
+      T v[L::LP], w[L::LP];
+      if (vm_off >= 0 && i >= s)
+        load_vec<T, true>(cur + (int64_t)(g - s) * L::PROW + vm_off, v);
+      else
+#pragma unroll
+        for (int j = 0; j < L::LP; ++j) v[j] = T(0);
+      if (vp_off >= 0 && i + s < n)
+        load_vec<T, true>(cur + (int64_t)(g + s) * L::PROW + vp_off, w);
+      else
+#pragma unroll
+        for (int j = 0; j < L::LP; ++j) w[j] = T(0);
+      if (active) store_vec(stage, w);
+      __syncwarp();
+      // a = (own - L P_{i-s}) - U P_{i+s}, the same on every lane (a lane
+      // without a term multiplies zeros), so the warp does not diverge
+      T a[K], acc[K];
+      block_times(slot + K * L::LP, v, acc);
+      load_vec<T, false>(slot + own, v);
+#pragma unroll
+      for (int r = 0; r < K; ++r) a[r] = (has_own ? v[r] : T(0)) - acc[r];
+      load_vec<T, false>(stage, v);
+      block_times(slot + 2 * K * L::LP, v, acc);
+#pragma unroll
+      for (int r = 0; r < K; ++r) a[r] -= acc[r];
+      __syncwarp();  // every lane has read the old state
+      if (!last && active) store_vec((resident ? slot : state + (int64_t)g * L::ROW) + own, a);
+      gauss_jordan(a);
+      if (last) {
+        if (lane == 27) {
+#pragma unroll
+          for (int r = 0; r < K; ++r) x[(int64_t)g * K + r] = a[r];
+        }
+      } else if (lane >= 9 && active) {
+        store_vec(nxt + (int64_t)g * L::PROW + p_off, a);
+      }
+    }
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+template <typename T>
 int64_t work_elems(int64_t B, int64_t N) {
-  int64_t R = B * N;
-  // two level buffers (3*81 + 9 each) + P (2*81 + 9)
-  return R * (2 * (3 * KK + K) + 2 * KK + K);
+  // the rows' state and two P buffers
+  return B * N * (Lay<T>::ROW + 2 * Lay<T>::PROW);
+}
+
+template <typename T>
+constexpr size_t smem_bytes() {
+  return (size_t)WARPS_PER_BLOCK * Lay<T>::SLOT * sizeof(T);
+}
+
+// Co-resident blocks of pcr_solve<T> on the current device, queried (and
+// its shared memory allowed) once per device and dtype.
+template <typename T>
+cudaError_t grid_limit(int* blocks) {
+  static int cached[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(pcr_solve<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes<T>());
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pcr_solve<T>, THREADS, smem_bytes<T>());
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached[dev] = per_sm * sms;
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -241,46 +348,53 @@ int solve(const T* D, const T* U, const T* b, T* x, T* work, int64_t B,
           int64_t N, int u_batched, cudaStream_t st) {
   int64_t R = B * N;
   if (R == 0) return 0;
-  Level<T> cur = level_at<T>(work, R);
-  Level<T> nxt = level_at<T>(work + R * (3 * KK + K), R);
-  T* PL = work + 2 * R * (3 * KK + K);
-  T* PU = PL + R * KK;
-  T* Pb = PU + R * KK;
+  // 32-bit row indices (g + s stays below INT_MAX)
+  if (R > INT_MAX / 2) return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t err = grid_limit<T>(&limit);
+  if (err != cudaSuccess) return (int)err;
+  int64_t blocks = (R + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  if (blocks > limit) blocks = limit;
+  T* state = work;
+  T* P0 = work + R * Lay<T>::ROW;
+  T* P1 = P0 + R * Lay<T>::PROW;
   int64_t u_stride = u_batched ? (N - 1) * KK : 0;
-
-  const int threads = 32 * WARPS_PER_BLOCK;
-  const unsigned warp_blocks = (unsigned)((R + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  const unsigned elem_blocks = (unsigned)((R * KK + threads - 1) / threads);
-  cudaError_t err;
-
-  pcr_init<T><<<elem_blocks, threads, 0, st>>>(D, U, b, cur, B, N, u_stride);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int64_t s = 1; s < N; s *= 2) {
-    pcr_gauss_jordan<T><<<warp_blocks, threads, 0, st>>>(cur, PL, PU, Pb, R, 1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    pcr_update<T><<<warp_blocks, threads, 0, st>>>(cur, PL, PU, Pb, nxt, B, N, s);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    Level<T> t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  pcr_gauss_jordan<T><<<warp_blocks, threads, 0, st>>>(cur, nullptr, nullptr, x, R, 0);
-  return (int)cudaGetLastError();
+  void* args[] = {&D, &U, &b, &x, &state, &P0, &P1, &B, &N, &u_stride};
+  err = cudaLaunchCooperativeKernel((const void*)pcr_solve<T>,
+                                    dim3((unsigned)blocks), dim3(THREADS),
+                                    args, smem_bytes<T>(), st);
+  // clear the error a refused launch leaves behind, so that it is reported
+  // here and not by the next launch of the process
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Elements of scratch (of the solve's dtype) the caller allocates.
-long long vinsat_tridiag_pcr_work_elems(long long B, long long N) {
-  return (long long)work_elems(B, N);
+// Elements of scratch of the solve's dtype (is_f64: 1 double, 0 float)
+// the caller allocates.
+long long vinsat_tridiag_pcr_work_elems(long long B, long long N, int is_f64) {
+  return (long long)(is_f64 ? work_elems<double>(B, N)
+                            : work_elems<float>(B, N));
+}
+
+// Warps the solve keeps resident on the current device (is_f64: 1 double,
+// 0 float): one row each at B*N up to this, grid-stride above it.  A
+// negative value is a CUDA error, negated.
+long long vinsat_tridiag_pcr_resident_warps(int is_f64) {
+  int blocks = 0;
+  cudaError_t err = is_f64 ? grid_limit<double>(&blocks)
+                           : grid_limit<float>(&blocks);
+  if (err != cudaSuccess) return -(long long)err;
+  return (long long)blocks * WARPS_PER_BLOCK;
 }
 
 // D (B,N,9,9), U (B,N-1,9,9) or (N-1,9,9) when u_batched == 0, b (B,N,9),
 // x (B,N,9) out, work (vinsat_tridiag_pcr_work_elems) — all contiguous
-// device memory of one dtype (is_f64: 1 double, 0 float).  Launches on
-// `stream`; returns the first cudaGetLastError() that is not success.
+// device memory of one dtype (is_f64: 1 double, 0 float).  One cooperative
+// launch on `stream`; returns its CUDA error (0 on success).
 int vinsat_tridiag_pcr(const void* D, const void* U, const void* b, void* x,
                        void* work, long long B, long long N, int u_batched,
                        int is_f64, void* stream) {

@@ -1,14 +1,18 @@
 """Kernel K1: batched block-tridiagonal solve by parallel cyclic reduction.
 
 Port of vinsat_tpu/kernels/tridiag_pallas.py (block_tridiag_solve_pallas).
-The CUDA kernel is csrc/tridiag_pcr.cu (its header says what bounds it on
-Hopper and what the design does about it); `block_tridiag_solve_pcr_plain`
-is its plain PyTorch twin with the same levels and elimination order.
+The CUDA kernel is csrc/tridiag_pcr.cu: one cooperative launch per solve,
+a warp per (batch, row), one grid-wide barrier per PCR level, with each
+level's update fused with the next level's Gauss-Jordan (its header says
+what bounds it on Hopper and what the design does about it).
+`block_tridiag_solve_pcr_plain` is its plain PyTorch twin with the same
+levels and elimination order.
 
 `block_tridiag_solve_pcr` dispatches on the tensors' device: a CPU tensor
 runs the plain twin, a CUDA tensor launches the kernel (built from the
-source at first use) or raises.  `block_tridiag_solve_pcr.launches` counts
-kernel launches (solves), so a run can show it went through the kernel.
+source at first use) or raises, also when the card refuses the cooperative
+launch.  `block_tridiag_solve_pcr.launches` counts kernel launches (one per
+solve), so a run can show it went through the kernel.
 """
 from __future__ import annotations
 
@@ -61,24 +65,38 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.vinsat_tridiag_pcr.restype = ctypes.c_int
-        lib.vinsat_tridiag_pcr_work_elems.argtypes = [ctypes.c_longlong,
-                                                      ctypes.c_longlong]
+        lib.vinsat_tridiag_pcr_work_elems.argtypes = [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
         lib.vinsat_tridiag_pcr_work_elems.restype = ctypes.c_longlong
+        lib.vinsat_tridiag_pcr_resident_warps.argtypes = [ctypes.c_int]
+        lib.vinsat_tridiag_pcr_resident_warps.restype = ctypes.c_longlong
     return lib
+
+
+def resident_warps(dtype, device=None) -> int:
+    """Warps the kernel keeps resident on the card (one cooperative grid):
+    one block row each up to this many rows B·N, grid-stride above it."""
+    with torch.cuda.device(device):
+        n = _lib().vinsat_tridiag_pcr_resident_warps(
+            int(dtype == torch.float64))
+    if n < 0:
+        raise RuntimeError(f"tridiag_pcr occupancy query failed: CUDA error "
+                           f"{-n}")
+    return n
 
 
 def _launch(D, U, b):
     Bn, N = D.shape[0], D.shape[1]
     lib = _lib()
+    f64 = int(D.dtype == torch.float64)
     x = torch.empty_like(b)
-    work = torch.empty(lib.vinsat_tridiag_pcr_work_elems(Bn, N),
+    work = torch.empty(lib.vinsat_tridiag_pcr_work_elems(Bn, N, f64),
                        dtype=D.dtype, device=D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
         rc = lib.vinsat_tridiag_pcr(
             D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
-            work.data_ptr(), Bn, N, int(U.dim() == 4),
-            int(D.dtype == torch.float64), stream)
+            work.data_ptr(), Bn, N, int(U.dim() == 4), f64, stream)
     if rc != 0:
         raise RuntimeError(f"tridiag_pcr kernel launch failed: CUDA error {rc}")
     block_tridiag_solve_pcr.launches += 1
