@@ -3,9 +3,6 @@
 GPU: the quickest proof that the port still starts and is right there.
 
     python3 chip_smoke.py          # from the repository root
-    python3 chip_smoke.py --k1-times [DIR]
-                  # only K1's times across N, of the checkout at DIR
-                  # (default: this one), e.g. a parent commit's kernel
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device: the card's name and power limit;
@@ -90,9 +87,9 @@ K2_SOURCE = "vinsat_tpu_torch/kernels/csrc/normal_eq.cu"
 K2_REPLACES = "vinsat_tpu/kernels/normal_eq.py:54"
 DURATION_S = 10800
 K1_TIME_N = (64, 128, 256, 448, 1024)
-# H100 SXM data-sheet peaks at 700 W: f64 and f32 outside the tensor
-# cores, HBM3 bandwidth
-PEAK_F64, PEAK_F32, PEAK_BYTES = 34e12, 67e12, 3.35e12
+# H100 SXM data-sheet peaks at 700 W: f64 on the tensor cores (34 TFLOP/s
+# outside them), f32 outside them (their TF32 is not f32), HBM3 bandwidth
+PEAK_F64, PEAK_F32, PEAK_BYTES = 67e12, 67e12, 3.35e12
 
 
 def _check(ok, what) -> None:
@@ -193,17 +190,28 @@ def _bound_ms(ops: float, peak: float, nbytes: float):
 
 
 def _pcr_flops(B: int, N: int) -> float:
-    """Floating-point operations of K1's PCR on B systems of N 9x9 block
-    rows: per level and row a pivot-free Gauss-Jordan on the 9 x 28 block
-    [D | L U b] (9 pivots x (28 scalings + 8 rows x 28 FMAs)) and the
-    update (four 9x9 block products and two 9x9-by-9 products, with the
-    subtractions); then the final 9 x 10 Gauss-Jordan per row."""
-    k, w = 9, 28
-    gj = k * (w + 2 * (k - 1) * w)
-    update = 4 * 2 * k**3 + 2 * 2 * k * k + 2 * k * k + 2 * k
-    final = k * ((k + 1) + 2 * (k - 1) * (k + 1))
-    levels = max(N - 1, 0).bit_length()
-    return B * N * (levels * (gj + update) + final)
+    """Floating-point operations K1's PCR needs on B systems of N 9x9 block
+    rows, leaving out the blocks that are zero by structure: before level s
+    row i holds L_i only for i >= s and U_i only for i < N - s.  Per level
+    and row: the pivot-free Gauss-Jordan of [D | L U b], where pivot p takes
+    a division and 8 FMAs in each column not yet reduced (the 8 - p of D
+    right of it, b, and L's and U's where present); then the update, a 9x9
+    block product and a block-vector product with their subtractions for
+    each of L_i and U_i present, and L'_i (U'_i) only where it is not zero,
+    so never at the last level.  Last, the 9 x 10 solve of each row."""
+    k = 9
+    col = 1 + 2 * (k - 1)  # one column at one pivot
+    d_cols = k * (k - 1) // 2  # D's columns left to reduce, over the pivots
+    mm, mv = 2 * k**3, 2 * k * k
+    total = N * col * (d_cols + k)  # the final solves
+    s = 1
+    while s < N:
+        n_side = N - s  # rows holding L (as many hold U)
+        n_next = max(N - 2 * s, 0)  # rows whose L' (U') is not zero
+        total += col * (N * (d_cols + k) + 2 * n_side * k * k)
+        total += 2 * n_side * (mm + k * k + mv + k) + 2 * n_next * mm
+        s *= 2
+    return B * total
 
 
 def _k1_device(solve, args):
@@ -247,29 +255,6 @@ def _k1_times(solve, plain, dev, smi):
               f"  [{smi}]")
         rows[(N, tag)] = (ms, p_ms, bnd, n_dev)
     return rows
-
-
-def k1_times_only(root) -> int:
-    """K1's times across N (as in phase 3) for the port at `root`."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.abspath(root))
-    from vinsat_tpu_torch.kernels import _build, tridiag_pcr
-
-    smi = _smi()
-    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"K1 of {os.path.dirname(os.path.abspath(tridiag_pcr.__file__))}")
-    _build.load("tridiag_pcr")
-    for line in _build.build_logs.get("tridiag_pcr", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas tridiag_pcr: {line.strip()}")
-    _k1_times(tridiag_pcr.block_tridiag_solve_pcr,
-              tridiag_pcr.block_tridiag_solve_pcr_plain,
-              torch.device("cuda"), smi)
-    return 0
 
 
 def _rows_check(tag, got, want, lonlat_tol):
@@ -762,6 +747,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] == "--k1-times":
-        sys.exit(k1_times_only(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

@@ -196,7 +196,7 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "k1_study.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "vinsat_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -47,11 +47,12 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu once (cached by content hash) and load it."""
+def load(name: str, src: Path | None = None) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu, or the source at `src`, once (cached by
+    content hash) into lib<name> and load it."""
     if name in _loaded:
         return _loaded[name]
-    src = CSRC / f"{name}.cu"
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"

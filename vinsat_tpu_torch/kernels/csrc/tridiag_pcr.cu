@@ -15,15 +15,18 @@
 // range count as zero blocks (no padding to 128 as on the TPU lanes).
 //
 // What bounds it on this card.  At the main path's B=9, N=448 in f64 the
-// solve is ~391 Mflop (9 levels x 4032 rows x (a 9 x 28 Gauss-Jordan + the
-// update's block products) + the final solve): 0.0115 ms at the 34 TFLOP/s
-// f64 peak.  The levels are sequential, each only ~10k flops a row, so the
-// time goes elsewhere: one grid-wide barrier per level (~1 us), and within
-// a level the data every lane must be handed.  A lane computes a whole
-// column of its row's new block, so it reads all of L and U (162 values)
-// and, in the Gauss-Jordan, 81 pivot-column values; shared memory and
-// shuffles deliver 128 bytes a clock per SM whatever the lanes share, so
-// at 31 rows an SM that is ~9 us a level.  The level state (3.4 KB a row
+// solve needs ~307 Mflop (per level and row, the Gauss-Jordan on the
+// columns of [D | L U b] not yet reduced and the update's block products,
+// leaving out blocks that are zero by structure; then the 9 x 10 solves:
+// chip_smoke.py _pcr_flops), 4.6 us at the card's 67 TFLOP/s f64 peak.
+// The 9 levels are sequential and each is ~8.5k flops a row, which the
+// design spreads over a warp's lanes, so the time goes to latency and to
+// the data handed to each lane: one grid-wide barrier per level, the
+// neighbours' P read through L2, and within a row the 9 dependent pivot
+// steps (a shuffled pivot column and an f64 divide each) and the update,
+// in which every lane reads all of L and U to form its column.
+// k1_study.py times builds of this file with each of those parts cut out,
+// which says how the time splits (PERF.md).  The level state (3.4 KB a row
 // in f64, 13.6 MB at B=9, N=448) is ~60x one SM's shared memory, so the
 // TPU design (everything in one core's VMEM across levels) does not carry
 // over.
@@ -174,8 +177,8 @@ __device__ __forceinline__ void block_times(const T* m, const T (&v)[Lay<T>::LP]
 }
 
 // D (B,N,9,9), U (B,N-1,9,9) or shared (u_stride 0), b (B,N,9) -> x.
-// state: B*N rows of Lay::ROW (used when B*N exceeds the grid's warps);
-// P0, P1: B*N rows of Lay::PROW each.  Dynamic shared memory: a slot of
+// state: B*N rows of Lay::ROW, read only when B*N exceeds the grid's warps
+// (null otherwise); P0, P1: B*N rows of Lay::PROW each.  Dynamic shared memory: a slot of
 // Lay::SLOT values per warp.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
@@ -307,18 +310,15 @@ pcr_solve(const T* __restrict__ D, const T* __restrict__ U,
 }
 
 template <typename T>
-int64_t work_elems(int64_t B, int64_t N) {
-  // the rows' state and two P buffers
-  return B * N * (Lay<T>::ROW + 2 * Lay<T>::PROW);
-}
-
-template <typename T>
 constexpr size_t smem_bytes() {
   return (size_t)WARPS_PER_BLOCK * Lay<T>::SLOT * sizeof(T);
 }
+// within the 48 KB a launch gets without opting in
+static_assert(smem_bytes<double>() <= 48 * 1024, "shared slot too large");
+static_assert(smem_bytes<float>() <= 48 * 1024, "shared slot too large");
 
-// Co-resident blocks of pcr_solve<T> on the current device, queried (and
-// its shared memory allowed) once per device and dtype.
+// Co-resident blocks of pcr_solve<T> on the current device, queried once
+// per device and dtype.
 template <typename T>
 cudaError_t grid_limit(int* blocks) {
   static int cached[MAX_DEVICES];
@@ -328,10 +328,6 @@ cudaError_t grid_limit(int* blocks) {
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (cached[dev] == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaFuncSetAttribute(pcr_solve<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes<T>());
-    if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, pcr_solve<T>, THREADS, smem_bytes<T>());
     if (err != cudaSuccess) return err;
@@ -341,6 +337,19 @@ cudaError_t grid_limit(int* blocks) {
   }
   *blocks = cached[dev];
   return cudaSuccess;
+}
+
+// Scratch of the solve, in values of T: the two P buffers, then the rows'
+// state where B*N exceeds the resident warps (in shared memory otherwise).
+// A negative value is a CUDA error, negated.
+template <typename T>
+int64_t work_elems(int64_t B, int64_t N) {
+  int limit = 0;
+  cudaError_t err = grid_limit<T>(&limit);
+  if (err != cudaSuccess) return -(int64_t)err;
+  const int64_t R = B * N;
+  const bool resident = R <= (int64_t)limit * WARPS_PER_BLOCK;
+  return R * (2 * Lay<T>::PROW + (resident ? 0 : Lay<T>::ROW));
 }
 
 template <typename T>
@@ -355,9 +364,11 @@ int solve(const T* D, const T* U, const T* b, T* x, T* work, int64_t B,
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = (R + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   if (blocks > limit) blocks = limit;
-  T* state = work;
-  T* P0 = work + R * Lay<T>::ROW;
+  T* P0 = work;
   T* P1 = P0 + R * Lay<T>::PROW;
+  // read only where the grid holds fewer warps than rows (work_elems)
+  T* state = R <= (int64_t)limit * WARPS_PER_BLOCK ? nullptr
+                                                   : P1 + R * Lay<T>::PROW;
   int64_t u_stride = u_batched ? (N - 1) * KK : 0;
   void* args[] = {&D, &U, &b, &x, &state, &P0, &P1, &B, &N, &u_stride};
   err = cudaLaunchCooperativeKernel((const void*)pcr_solve<T>,
@@ -374,7 +385,8 @@ int solve(const T* D, const T* U, const T* b, T* x, T* work, int64_t B,
 extern "C" {
 
 // Elements of scratch of the solve's dtype (is_f64: 1 double, 0 float)
-// the caller allocates.
+// the caller allocates on the current device.  A negative value is a CUDA
+// error, negated.
 long long vinsat_tridiag_pcr_work_elems(long long B, long long N, int is_f64) {
   return (long long)(is_f64 ? work_elems<double>(B, N)
                             : work_elems<float>(B, N));

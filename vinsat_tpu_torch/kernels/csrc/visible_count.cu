@@ -14,7 +14,8 @@
 //
 // What bounds it on this card: the compares.  The simulator's gate runs it
 // at F = 10801 frames x L = 7920 landmarks: 85.5M pairs x 8 compares, about
-// 20 us at the f64 peak, while the bytes (bounds 346 KB, landmarks 135 KB,
+// 10 us at the card's 67 TFLOP/s f64 peak (20 us at the 34 TFLOP/s outside
+// the tensor cores), while the bytes (bounds 346 KB, landmarks 135 KB,
 // counts 43 KB) move in under 1 us.  The landmark arrays are read by every
 // frame, so they stay in the 50 MB L2 after the first warps touch them.
 //

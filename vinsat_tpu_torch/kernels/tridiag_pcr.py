@@ -90,9 +90,13 @@ def _launch(D, U, b):
     lib = _lib()
     f64 = int(D.dtype == torch.float64)
     x = torch.empty_like(b)
-    work = torch.empty(lib.vinsat_tridiag_pcr_work_elems(Bn, N, f64),
-                       dtype=D.dtype, device=D.device)
     with torch.cuda.device(D.device):
+        # the row state's scratch only where the rows outnumber the warps
+        n_work = lib.vinsat_tridiag_pcr_work_elems(Bn, N, f64)
+        if n_work < 0:
+            raise RuntimeError(f"tridiag_pcr occupancy query failed: CUDA "
+                               f"error {-n_work}")
+        work = torch.empty(n_work, dtype=D.dtype, device=D.device)
         stream = torch.cuda.current_stream(D.device).cuda_stream
         rc = lib.vinsat_tridiag_pcr(
             D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
