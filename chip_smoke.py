@@ -14,9 +14,10 @@ Phases (each prints its lines; any failure exits non-zero):
      <= 1e-9 in f64 (also against the Thomas solve) and <= 1e-4 in f32;
      the kernel's and the twin's times and the bound at B=9 in f64 for
      N in {64, 128, 256, 448, 1024} and at N=448 in f32, with the device
-     kernels of one call under torch.profiler (must be 1: one cooperative
-     launch); at N=448 in f64 that of torch.linalg.solve on the assembled
-     dense (9N x 9N) systems;
+     kernels of one call (the nodes of its CUDA graph; must be 1: one
+     cooperative launch) and its device time under torch.profiler; at
+     N=448 in f64 that of torch.linalg.solve on the assembled dense
+     (9N x 9N) systems;
   4. the streaming slice: orbit determination of the committed 10800 s
      fixture (tests/data/torch_stream_seed1.npz) through the port's
      run_streaming on cuda in f64, once cold and twice timed, held to the
@@ -38,15 +39,23 @@ Phases (each prints its lines; any failure exits non-zero):
      where the wall goes (µs per orbit and per attitude RK4 step, the
      detection stage alone);
   8. K3 against its plain twin on the card at mode b's inputs (10801
-     footprints x 7920 landmarks) in f64 and f32, and a small case of
-     wrapped, empty and NaN boxes: counts equal; both times;
+     footprints x 7920 landmarks; the landmarks region by region as the
+     simulator gives them, and in a seeded random order) in f64 and f32,
+     and a small case of wrapped, empty and NaN boxes: counts equal; both
+     times, the device kernels (graph nodes, at most 3) and device µs of
+     one call, the compare instructions a pair of the pair loops
+     (cuobjdump -sass), the pairs left by the exact tile cull, and two
+     bounds at the CUDA cores' issue rate: after the cull, and by brute
+     force;
   9. the main path from the port's own generator: simulate_sequence(1)
      in mode a on cuda, then streamed: finite, >= 2 windows, final error
      under 5 km, with the K3 and K1 launch counts of that run;
  10. K2 against its plain twin on the card at the long arc's shape (2168
      knots, D=4, random J, r, w from a seed): relative error <= 1e-12 in
-     f64 and <= 1e-5 with f32=True; the kernel's, the twin's and the two
-     einsums' (dist/sharded_ba.py:226-227 of the JAX package) times;
+     f64 and <= 1e-5 with f32=True; the kernel's call time (20 calls back
+     to back), its device time and device kernels a call (graph nodes)
+     in both modes (must be 1), the twin's and the two einsums'
+     (dist/sharded_ba.py:226-227 of the JAX package) times;
  11. the long arc (config 5(a)) from JAX's data: the committed sequence of
      tests/data/torch_longarc_seed1.npz through the port's
      build_sharded_problem (initial states within 1e-12 of JAX's) and
@@ -90,6 +99,10 @@ K1_TIME_N = (64, 128, 256, 448, 1024)
 # H100 SXM data-sheet peaks at 700 W: f64 on the tensor cores (34 TFLOP/s
 # outside them), f32 outside them (their TF32 is not f32), HBM3 bandwidth
 PEAK_F64, PEAK_F32, PEAK_BYTES = 67e12, 67e12, 3.35e12
+# the CUDA cores' issue rates, instructions/s: an FMA (two flops) and a
+# compare are one instruction each; compares never run on the tensor cores
+INSTR_F64, INSTR_F32 = 34e12 / 2, 67e12 / 2
+PAD_CYCLES = 2_000_000  # ~1 ms spin around each profiled call
 
 
 def _check(ok, what) -> None:
@@ -164,20 +177,27 @@ def _device_profile(fn):
     """Run fn once under torch.profiler, tracing the device only (host-op
     events would multiply the trace's size): (host wall s, {device kernel
     or copy name: (count, device µs)}); the dict is empty where the
-    profiler sees no device activity."""
+    profiler sees no device activity.  A ~1 ms spin kernel runs before and
+    after fn inside the trace, and is left out of the dict: the profiler
+    has been seen to drop the events of short kernels at a trace's edges."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
     per = {e.key: (e.count, e.self_device_time_total)
            for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
+           if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.key}
     return wall, per
 
 
@@ -214,21 +234,63 @@ def _pcr_flops(B: int, N: int) -> float:
     return B * total
 
 
-def _k1_device(solve, args):
-    """One K1 call under torch.profiler: (device kernels, their device µs);
-    (None, None) where the profiler sees no device activity."""
-    solve(*args)
-    _, per = _device_profile(lambda: solve(*args))
-    if not per:
-        return None, None
-    return (sum(c for c, _ in per.values()),
-            sum(t for _, t in per.values()))
+def _graph_nodes(fn) -> int:
+    """Device operations of one call of fn: the call captured in a CUDA
+    graph (after a warm call on a side stream) and the graph's nodes
+    counted by libcuda (cuGraphGetNodes): every kernel launch, memset
+    and copy the call puts on the stream is one node."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_size_t)]
+    get.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = get(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {rc}")
+    return n.value
+
+
+def _per_call(fn, args, tries: int = 5, **kw):
+    """One call fn(*args, **kw) on the device: (device kernels a call,
+    their device µs a call, {kernel name: device µs a call}).  The kernels
+    are the nodes of the call's CUDA graph (`_graph_nodes`); the µs come
+    from torch.profiler, one call a trace, the mean over those of `tries`
+    traces that saw as many kernels (the profiler has been seen to drop
+    short kernels' events), or None and {} where none did."""
+    call = lambda: fn(*args, **kw)  # noqa: E731
+    n = _graph_nodes(call)
+    full = []
+    for _ in range(tries):
+        _, per = _device_profile(call)
+        if sum(c for c, _ in per.values()) == n:
+            full.append(per)
+    if not full:
+        return n, None, {}
+    split = {k: sum(p.get(k, (0, 0.0))[1] for p in full) / len(full)
+             for k in full[0]}
+    return n, sum(split.values()), split
+
+
+def _us(x) -> str:
+    return "not measured" if x is None else f"{x:.2f}"
 
 
 def _k1_times(solve, plain, dev, smi):
     """K1's kernel and plain-twin times (CUDA events, in turns) and its
     bound at B=9, in f64 at each N of K1_TIME_N and in f32 at N=448, with
-    the device kernels of one profiled call and their device time: {(N,
+    the device kernels a call and their device time (`_per_call`): {(N,
     dtype name): (ms, plain ms, (bound ms, bound by), kernels per call)}."""
     import numpy as np
     import torch
@@ -245,16 +307,101 @@ def _k1_times(solve, plain, dev, smi):
                         PEAK_F64 if dtype == torch.float64 else PEAK_F32,
                         D.element_size() * (D.numel() + U.numel()
                                             + 2 * b.numel()))
-        n_dev, dev_us = _k1_device(solve, (D, U, b))
+        n_dev, dev_us, _ = _per_call(solve, (D, U, b))
         tag = str(dtype)[6:]
         print(f"K1 time N={N} B=9 {tag}: kernel {ms:.4f} ms ({r[1]:.4f}, "
               f"{r[2]:.4f}), plain {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
               f"bound {bnd[0]:.4f} ms ({bnd[1]}), {n_dev} device kernels "
-              f"per call, {dev_us if dev_us is None else f'{dev_us:.2f}'} "
-              f"µs of device time (one profiled call)"
+              f"per call (CUDA graph), {_us(dev_us)} µs of device time a "
+              f"call (torch.profiler)"
               f"  [{smi}]")
         rows[(N, tag)] = (ms, p_ms, bnd, n_dev)
     return rows
+
+
+def _k3_compares(lib_path: str):
+    """Compare instructions a pair that K3's pair loops issue, read from
+    `cuobjdump -sass` of the built library: {dtype: (a loop testing one
+    box, the loop testing lon and lon + 360)} and where the numbers come
+    from.  The pair loops are the count kernel's innermost loops that read
+    shared memory and no global memory; each pass covers PAIR_UNROLL
+    landmarks (read from the source).  Without cuobjdump, or where no such
+    loop is found: the source's 4 and 6 compares."""
+    import re
+    from pathlib import Path
+
+    from vinsat_tpu_torch.kernels import _build
+
+    counted = {"float64": (4, 6), "float32": (4, 6)}
+    with open(os.path.join(ROOT, K3_SOURCE)) as fh:
+        unroll = int(re.search(r"PAIR_UNROLL = (\d+);", fh.read()).group(1))
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    try:
+        sass = subprocess.run([str(tool), "-sass", lib_path],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return counted, "counted in the source (no cuobjdump)"
+    found = {}
+    for fn_text in sass.split("Function : ")[1:]:
+        name = fn_text.split(None, 1)[0]
+        tag = ("float64" if "count_kernelIdE" in name else
+               "float32" if "count_kernelIfE" in name else None)
+        if tag is None:
+            continue
+        ins = [(int(a, 16), i) for a, i in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn_text)]
+        loops = []
+        for a, i in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", i)
+            if m and int(m.group(1), 16) < a:
+                loops.append((int(m.group(1), 16), a))
+        per = set()
+        for lo, hi in loops:
+            if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                   for l2, h2 in loops):
+                continue  # not innermost
+            body = [i for a, i in ins if lo <= a <= hi]
+            if (any("LDS" in i for i in body)
+                    and not any("LDG" in i for i in body)):
+                per.add(sum(bool(re.search(r"\b[DF]SETP", i))
+                            for i in body) / unroll)
+        if per:
+            found[tag] = (min(per), max(per))
+    if set(found) != set(counted):
+        return counted, "counted in the source (no pair loop in the SASS)"
+    return found, f"cuobjdump -sass, {unroll} landmarks a loop pass"
+
+
+def _k3_work(args, per_pair):
+    """What K3's pair loops must run on these inputs after the exact cull,
+    from the tile boxes' plain twin: (pairs left, compare instructions
+    they take, pairs at a warp's granularity -- what the kernel runs).  A
+    (frame, tile) is left where the frame's box meets the tile's lon or
+    lon + 360 box by the count's own compares; per_pair = (one box, both)."""
+    import torch
+
+    from vinsat_tpu_torch.kernels import visible_count
+
+    bounds, lon, lat, best = args
+    tile = visible_count.TILE
+    boxes = visible_count.tile_boxes_plain(lon, lat, best)
+    a0, b0, a1, b1 = (bounds[:, i:i + 1] for i in range(4))
+    lat_ok = (b0 < boxes[:, 5]) & (boxes[:, 4] < b1)
+    hit_lon = lat_ok & (a0 < boxes[:, 1]) & (boxes[:, 0] < a1)
+    hit_w = lat_ok & (a0 < boxes[:, 3]) & (boxes[:, 2] < a1)
+    L = lon.shape[0]
+    size = torch.full((boxes.shape[0],), float(tile), device=lon.device,
+                      dtype=torch.float64)
+    size[-1] = L - tile * (boxes.shape[0] - 1)
+    either, both = hit_lon | hit_w, hit_lon & hit_w
+    pairs = float((either.double() * size).sum())
+    instr = float((either.double() * size).sum() * per_pair[0]
+                  + (both.double() * size).sum() * (per_pair[1] - per_pair[0]))
+    F = bounds.shape[0]
+    warp = torch.nn.functional.pad(either, (0, 0, 0, -F % 32))
+    warp = warp.view(-1, 32, either.shape[1]).any(1)
+    return pairs, instr, float((warp.double() * size).sum() * 32)
 
 
 def _rows_check(tag, got, want, lonlat_tol):
@@ -523,33 +670,61 @@ def main() -> int:
           f"attitude rollout {step_us['attitude']:.1f} µs/step (1000-step "
           f"chains), detection stage {time.time() - t0:.3f} s  [{smi}]")
 
-    # 8. K3 against its plain twin at mode b's inputs
+    # 8. K3 against its plain twin at mode b's inputs: the landmarks region
+    # by region, as the simulator gives them, and in a seeded random order
+    # (where the tile cull skips almost nothing)
     cam = camera.CameraModel.from_hfov()
     pos_b = seq_b.traj.pos_ecef * 1000.0
     bounds, _ = camera.footprint_bounds(cam, camera.CameraPose.nadir(pos_b))
     db = seq_b.db
     accepted = db.best & mgrs.active_region_mask(dev)[db.region]
     F, L = bounds.shape[0], db.num_landmarks
+    perm = torch.as_tensor(np.random.default_rng(8).permutation(L),
+                           device=dev)
+    per_pair, per_pair_src = _k3_compares(_build.load("visible_count")._name)
+    print(f"K3 compare instructions a pair ({per_pair_src}): "
+          + ", ".join(f"{t}: {a:g} (one box), {b:g} (lon and lon + 360)"
+                      for t, (a, b) in per_pair.items()))
     k3_err, k3_times = 0, {}
-    for dtype, peak_rate in ((torch.float64, PEAK_F64),
-                             (torch.float32, PEAK_F32)):
-        args = [bounds.to(dtype).contiguous(), db.lon.to(dtype),
-                db.lat.to(dtype), accepted]
-        got, want = k3(*args), k3_plain(*args)
-        torch.cuda.synchronize()
-        k3_err = max(k3_err, int((got - want).abs().max()))
-        _check(torch.equal(got, want), ("K3", dtype))
-        if dtype == torch.float64:
-            _check(np.array_equal(got.cpu().numpy(), sim_fx["count_b"]),
-                   "K3 count vs JAX")
-        ms, p_ms, r = _alternate(lambda: k3_plain(*args), lambda: k3(*args))
-        nbytes = sum(a.numel() * a.element_size() for a in args) + 4 * F
-        bnd = _bound_ms(8.0 * F * L, peak_rate, nbytes)
-        k3_times[dtype] = (ms, p_ms, bnd)
-        print(f"K3 F={F} L={L} {str(dtype)[6:]}: equal to plain, "
-              f"{int(got.sum())} in boxes; kernel {ms:.4f} ms ({r[1]:.4f}, "
-              f"{r[2]:.4f}), plain {p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]})  [{smi}]")
+    for order in ("regions", "shuffled"):
+        for dtype, rate in ((torch.float64, INSTR_F64),
+                            (torch.float32, INSTR_F32)):
+            tag = str(dtype)[6:]
+            lm = (db.lon, db.lat, accepted)
+            if order == "shuffled":
+                lm = tuple(a[perm] for a in lm)
+            args = [bounds.to(dtype).contiguous(), lm[0].to(dtype),
+                    lm[1].to(dtype), lm[2]]
+            got, want = k3(*args), k3_plain(*args)
+            torch.cuda.synchronize()
+            k3_err = max(k3_err, int((got - want).abs().max()))
+            _check(torch.equal(got, want), ("K3", order, dtype))
+            if dtype == torch.float64:
+                _check(np.array_equal(got.cpu().numpy(), sim_fx["count_b"]),
+                       ("K3 count vs JAX", order))
+            ms, p_ms, r = _alternate(lambda: k3_plain(*args),
+                                     lambda: k3(*args))
+            n_dev, dev_us, split = _per_call(k3, args)
+            _check(n_dev <= 3,
+                   ("K3 device kernels per call", order, dtype, n_dev))
+            nbytes = sum(a.numel() * a.element_size() for a in args) + 4 * F
+            pairs, instr, warp_pairs = _k3_work(args, per_pair[tag])
+            brute = _bound_ms(F * L * per_pair[tag][1], rate, nbytes)
+            bnd = _bound_ms(instr, rate, nbytes)
+            k3_times[(order, tag)] = (ms, p_ms, bnd, n_dev)
+            print(f"K3 F={F} L={L} {tag} {order}: equal to plain, "
+                  f"{int(got.sum())} in boxes; kernel {ms:.4f} ms "
+                  f"({r[1]:.4f}, {r[2]:.4f}), {n_dev} device kernels and "
+                  f"{_us(dev_us)} µs of device time a call ("
+                  + ", ".join(f"{k.split('::')[-1].split('(')[0]} {v:.2f}"
+                              for k, v in split.items())
+                  + f"); plain "
+                  f"{p_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}); pairs left by "
+                  f"the exact cull {pairs:.0f} of {F * L} "
+                  f"({100 * pairs / (F * L):.3f}%), {warp_pairs:.0f} at a "
+                  f"warp's granularity; bound {bnd[0]:.6f} ms ({bnd[1]}) "
+                  f"after the cull, {brute[0]:.4f} ms ({brute[1]}) by brute "
+                  f"force  [{smi}]")
     small = torch.tensor([[170.0, -10.0, 200.0, 10.0],
                           [float("inf"), float("inf"), -float("inf"),
                            -float("inf")],
@@ -614,14 +789,23 @@ def main() -> int:
     JW2 = J2 * w2[..., None, None]
     k2_lib_ms = _time_ms(lambda: (torch.einsum("ndki,ndkj->nij", JW2, J2),
                                   torch.einsum("ndki,ndk->ni", JW2, r2)))
+    k2_call = {f32: _per_call(k2, k2_args, f32=f32)
+               for f32 in (False, True)}
+    for f32, (n_dev, _, _) in k2_call.items():
+        _check(n_dev == 1, ("K2 device kernels per call", f32, n_dev))
     rows = 2 * 4
-    k2_bound = _bound_ms(n_knots * rows * (9 + 2 * 90), PEAK_F64,
+    # per row: 9 products J w, then 45 + 9 FMAs (G's upper triangle, g)
+    k2_bound = _bound_ms(n_knots * rows * (9 + 2 * 54), PEAK_F64,
                          8 * (sum(a.numel() for a in k2_args)
                               + n_knots * 90))
-    print(f"K2 time N={n_knots} D=4 f64: kernel {k2_ms:.4f} ms ({r[1]:.4f}, "
-          f"{r[2]:.4f}), plain {k2_plain_ms:.4f} ms ({r[0]:.4f}, "
-          f"{r[3]:.4f}), the two einsums {k2_lib_ms:.4f} ms, bound "
-          f"{k2_bound[0]:.6f} ms ({k2_bound[1]})  [{smi}]")
+    print(f"K2 time N={n_knots} D=4 f64: kernel {k2_ms:.4f} ms a call "
+          f"({r[1]:.4f}, {r[2]:.4f}; 20 back to back), "
+          f"{_us(k2_call[False][1])} µs of device time a call "
+          f"({_us(k2_call[True][1])} with f32=True), device kernels a call "
+          f"{k2_call[False][0]} ({k2_call[True][0]} with f32=True); plain "
+          f"{k2_plain_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), the two einsums "
+          f"{k2_lib_ms:.4f} ms, bound {k2_bound[0]:.6f} ms ({k2_bound[1]})"
+          f"  [{smi}]")
 
     # 11. the long arc from JAX's data
     n_arc = int(la_fx["n_arc"])
@@ -720,7 +904,7 @@ def main() -> int:
     _check(k3_12 > 0 and k2_12 > 0, (k3_12, k2_12))
 
     print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
-    k3_ms, k3_plain_ms, k3_bound = k3_times[torch.float64]
+    k3_ms, k3_plain_ms, k3_bound, k3_dev = k3_times[("regions", "float64")]
     print(json.dumps({"kernels": [
         {"name": "tridiag_pcr", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": k1_launches,
@@ -733,12 +917,18 @@ def main() -> int:
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "design": "tile boxes, then a frame per lane over the tiles the "
+                   "boxes leave, staged in shared memory",
+         "device_kernels_per_call": k3_dev},
         {"name": "normal_eq", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": k2_launches,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": k2_lib_ms}]}))
+         "library_ms": k2_lib_ms,
+         "design": "a warp per knot, staged in its shared slot; G's upper "
+                   "triangle mirrored",
+         "device_kernels_per_call": k2_call[False][0]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -16,7 +16,14 @@ residual mean 1e-8, since it weighs differences of ~7000 km positions by
 sqrt(Σ) (tests/test_torch_ba.py).
 
 K3 against its plain twin at the simulator's full size (F=10801 frames,
-L=7920 landmarks) in f64 and f32: counts equal exactly.
+L=7920 landmarks) in f64 and f32, on a globally uniform DB, on the
+region-ordered synthetic DB (where the tile cull skips ~98% of the work)
+and on that DB shuffled, and on small adversarial cases (wrapped, NaN and
+inf boxes, landmarks at +-180 and on box and tile-box edges, a tile with
+no accepted landmark, ragged F and L): counts equal exactly, the tile
+boxes equal their twin's bit for bit.  K2 and K3 are one and two device
+kernels a call (torch.profiler), replay in a CUDA graph on new inputs and
+count one launch a call.
 
 K2 against its plain twin at the long arc's shape (2168 knots, D=4):
 relative 1e-12 in f64 (the same products summed in another order), 1e-5
@@ -31,6 +38,7 @@ import torch
 from vinsat_tpu_torch.dist import mesh, sharded_ba
 from vinsat_tpu_torch.estimation import ba
 from vinsat_tpu_torch.kernels import normal_eq, tridiag_pcr, visible_count
+from vinsat_tpu_torch.sim import landmarks, mgrs
 
 
 def _cuda():
@@ -49,6 +57,49 @@ def _problem(rng, B, N, k=9):
 
 def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _device_kernels(fn, tries: int = 5) -> int:
+    """Device kernels and copies of one call of fn under torch.profiler:
+    the most that any of `tries` traces saw (the profiler has been seen to
+    drop the events of short kernels, never to add one); a ~1 ms spin
+    kernel before and after the call keeps them off the trace's edges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    most = 0
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2_000_000)
+            fn()
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+        most = max(most, sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and "spin_kernel" not in e.key))
+    return most
+
+
+def _replays(fn, inputs, fresh):
+    """fn(*inputs) captured in a CUDA graph, the inputs overwritten with
+    `fresh` and the graph replayed: (the graph's outputs, fn(*inputs) run
+    eagerly on the fresh inputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (build)
+        fn(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*inputs)
+    for a, new in zip(inputs, fresh):
+        a.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out, fn(*inputs)
 
 
 @pytest.mark.cuda
@@ -177,11 +228,32 @@ def _k3_case(rng, F, L):
     return bounds, lon, lat, rng.uniform(size=L) < 0.25
 
 
+def _k3_regions(rng, F, shuffled):
+    """The region-ordered synthetic DB (16 regions x 495 landmarks, the
+    accepted ones as the simulator gates on), or the same DB in a seeded
+    random order; F footprint-sized boxes (~8 x 4 deg) around landmarks."""
+    db = landmarks.synthesize(1, device="cpu")
+    lon, lat = db.lon.numpy(), db.lat.numpy()
+    best = (db.best & mgrs.active_region_mask("cpu")[db.region]).numpy()
+    if shuffled:
+        p = rng.permutation(lon.size)
+        lon, lat, best = lon[p], lat[p], best[p]
+    c = rng.integers(0, lon.size, F)
+    h = rng.uniform([3.5, 1.5], [4.5, 2.3], size=(F, 2))
+    ctr = np.stack([lon[c], lat[c]], axis=1) + rng.normal(size=(F, 2))
+    return np.concatenate([ctr - h, ctr + h], axis=1), lon, lat, best
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_visible_count_matches_plain_full_size(dtype):
+@pytest.mark.parametrize("db", ["uniform", "regions", "shuffled"])
+def test_visible_count_matches_plain_full_size(db, dtype):
     dev = _cuda()
-    bounds, lon, lat, best = _k3_case(np.random.default_rng(7), 10801, 7920)
+    rng = np.random.default_rng(7)
+    if db == "uniform":
+        bounds, lon, lat, best = _k3_case(rng, 10801, 7920)
+    else:
+        bounds, lon, lat, best = _k3_regions(rng, 10801, db == "shuffled")
     args = [torch.as_tensor(a, dtype=dtype, device=dev)
             for a in (bounds, lon, lat)]
     args.append(torch.as_tensor(best, device=dev))
@@ -191,7 +263,95 @@ def test_visible_count_matches_plain_full_size(dtype):
     assert visible_count.visible_count.launches == before + 1
     want = visible_count.visible_count_plain(*args)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert int(want.sum()) > 0 and int(want[64]) == int(want[65]) == 0
+    assert int((want > 0).sum()) > 1000
+    if db == "uniform":
+        assert int(want[64]) == int(want[65]) == 0
+    assert torch.equal(visible_count.tile_boxes(*args[1:]),
+                       visible_count.tile_boxes_plain(*args[1:]))
+
+
+def _cull_case(order, seed=5):
+    """L = 509 landmarks (the last of 4 tiles partial) region by region,
+    one region across the antimeridian, landmarks at +-180, a whole tile
+    with no accepted landmark; or the same DB shuffled.  F = 61 boxes the
+    size of a footprint near the landmarks, some wrapped (lon_max > 180),
+    some with a landmark on an edge, NaN and +-inf ones.  numpy f64."""
+    rng = np.random.default_rng(seed)
+    regions = [(-10.0, 40.0, -2.0, 44.0), (176.0, -20.0, 184.0, -16.0),
+               (30.0, -5.0, 38.0, -1.0), (100.0, 60.0, 108.0, 64.0),
+               (-75.0, 10.0, -67.0, 14.0)]
+    per = [102, 102, 102, 102, 101]
+    lon = np.concatenate([rng.uniform(r[0], r[2], n)
+                          for r, n in zip(regions, per)])
+    lat = np.concatenate([rng.uniform(r[1], r[3], n)
+                          for r, n in zip(regions, per)])
+    lon = np.where(lon > 180.0, lon - 360.0, lon)
+    lon[102], lon[103] = 180.0, -180.0
+    best = rng.uniform(size=lon.size) < 0.6
+    if order == "shuffled":
+        p = rng.permutation(lon.size)
+        lon, lat, best = lon[p], lat[p], best[p]
+    best[256:384] = False  # a tile with no accepted landmark
+    F = 61
+    c = rng.integers(0, lon.size, F)
+    w, h = rng.uniform(3.0, 5.0, F), rng.uniform(1.5, 2.5, F)
+    bounds = np.stack([lon[c] - w, lat[c] - h, lon[c] + w, lat[c] + h], 1)
+    bounds[:8, 0] = rng.uniform(174.0, 179.5, 8)  # wrapped boxes
+    bounds[:8, 2] = bounds[:8, 0] + 8.0
+    bounds[8] = [np.inf, np.inf, -np.inf, -np.inf]
+    bounds[9] = [-np.inf, -np.inf, np.inf, np.inf]
+    bounds[10, 2] = np.nan
+    bounds[11] = [np.nan] * 4
+    for k, j in ((12, 0), (13, 200), (14, 102), (15, 103)):
+        bounds[k, 0], bounds[k, 1] = lon[j], lat[j]  # on the west / south
+        bounds[k, 2], bounds[k, 3] = lon[j] + 6.0, lat[j] + 3.0
+    bounds[16, 2], bounds[16, 3] = lon[300], lat[300]  # on east / north
+    bounds[16, 0], bounds[16, 1] = lon[300] - 6.0, lat[300] - 3.0
+    return bounds, lon, lat, best
+
+
+def _onto_tile_box_edges(bounds, boxes):
+    """bounds with frames 17-22 moved onto edges of the tile boxes
+    (lon_min, lon_max, lonw_min, lonw_max, lat_min, lat_max) given."""
+    bounds = bounds.clone()
+    for k, (col, t, e) in enumerate(((2, 0, 0), (0, 1, 1), (3, 2, 4),
+                                     (1, 3, 5), (2, 3, 2), (0, 0, 3))):
+        if torch.isfinite(boxes[t, e]):
+            bounds[17 + k, col] = boxes[t, e]
+    return bounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("order", ["regions", "shuffled"])
+def test_visible_count_adversarial_small(order, dtype):
+    dev = _cuda()
+    bounds, lon, lat, best = _cull_case(order)
+    args = [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in (bounds, lon, lat)]
+    args.append(torch.as_tensor(best, device=dev))
+    boxes = visible_count.tile_boxes(*args[1:])
+    assert torch.equal(boxes, visible_count.tile_boxes_plain(*args[1:]))
+    args[0] = _onto_tile_box_edges(args[0], boxes)
+    for F in (61, 1, 33):  # F not a multiple of a warp or of a block
+        sub = [args[0][:F].contiguous(), *args[1:]]
+        got = visible_count.visible_count(*sub)
+        assert torch.equal(got, visible_count.visible_count_plain(*sub))
+    assert int(got[8]) == 0 and int(got[9]) == int(best.sum())
+
+
+@pytest.mark.cuda
+def test_visible_count_kernels_per_call_and_graph():
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    cases = [_k3_regions(rng, 2000, False), _k3_regions(rng, 2000, True)]
+    inputs = [torch.as_tensor(a, device=dev) for a in cases[0]]
+    fresh = [torch.as_tensor(a, device=dev) for a in cases[1]]
+    assert _device_kernels(
+        lambda: visible_count.visible_count(*inputs)) == 2
+    out, eager = _replays(visible_count.visible_count, inputs, fresh)
+    assert torch.equal(out, eager)
+    assert torch.equal(out, visible_count.visible_count_plain(*fresh))
 
 
 @pytest.mark.cuda
@@ -233,7 +393,8 @@ def test_normal_eq_matches_plain(dtype, f32, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,D", [(1, 4), (5, 1), (13, 12)])
+@pytest.mark.parametrize("N,D", [(1, 4), (5, 1), (13, 12), (2169, 4),
+                                 (7, 7), (3, 13), (2, 2)])
 def test_normal_eq_ragged_shapes(N, D):
     dev = _cuda()
     args = [torch.as_tensor(a, device=dev)
@@ -241,7 +402,27 @@ def test_normal_eq_ragged_shapes(N, D):
     G, g = normal_eq.assemble_normal_eq(*args)
     G_p, g_p = normal_eq.assemble_normal_eq_plain(*args)
     torch.cuda.synchronize()
+    assert G.is_contiguous() and g.is_contiguous()
     assert _rel(G, G_p) < 1e-12 and _rel(g, g_p) < 1e-12
+    G32, g32 = normal_eq.assemble_normal_eq(*args, f32=True)
+    G32_p, g32_p = normal_eq.assemble_normal_eq_plain(*args, f32=True)
+    assert _rel(G32, G32_p) < 1e-5 and _rel(g32, g32_p) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True])
+def test_normal_eq_one_kernel_per_call_and_graph(f32):
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    inputs = [torch.as_tensor(a, device=dev) for a in _k2_case(rng, 2168)]
+    fresh = [torch.as_tensor(a, device=dev) for a in _k2_case(rng, 2168)]
+    call = lambda J, r, w: normal_eq.assemble_normal_eq(  # noqa: E731
+        J, r, w, f32=f32)
+    assert _device_kernels(lambda: call(*inputs)) == 1
+    (G, g), (G_e, g_e) = _replays(call, inputs, fresh)
+    assert torch.equal(G, G_e) and torch.equal(g, g_e)
+    G_p, _ = normal_eq.assemble_normal_eq_plain(*fresh, f32=f32)
+    assert _rel(G, G_p) < (1e-5 if f32 else 1e-12)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,10 @@ kernel run in interpret mode (it casts its inputs to f32), in f64 against
 antimeridian (lon_max > 180), empty ones (inf bounds, as a frame with no
 corner hit gives), NaN ones, and landmarks on box edges (strict
 comparisons).  The kernel itself runs only on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py); here a plain model of its tiled count (the
+tile boxes' twin, the rule by which a warp skips a tile, the per-pair
+test) is held equal to the twin and to JAX's reference on that file's
+adversarial cases, region-ordered and shuffled, in f64 and f32."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ import torch
 
 from vinsat_tpu.kernels import matching
 from vinsat_tpu_torch.kernels import visible_count as vc
+
+from test_torch_cuda import _cull_case, _onto_tile_box_edges
 
 F, L = 37, 301
 
@@ -93,3 +98,67 @@ def test_wrapper_rejects_bad_inputs(bad, err):
     args = bad(*(torch.as_tensor(a) for a in _case(4)))
     with pytest.raises(err):
         vc.visible_count(*args)
+
+
+# --- the tiled count's cull rule (what the kernel skips), modelled in plain
+# PyTorch: the wrapper's tile boxes, the skip rule, the per-pair test; on
+# the cases that tests/test_torch_cuda.py runs through the kernel --------
+
+def _tiled_count(bounds, lon, lat, best, group):
+    """The kernel's count in plain PyTorch: frames in groups of `group`
+    (32: a warp; 1: each frame alone) run the lon (lon + 360) test of a
+    tile only where one of them meets the tile's lon (lon + 360) box, by
+    the count's strict compares; the pairs run are tested as the twin does.
+    The frames' boxes are first set onto tile-box edges (frames 17-22)."""
+    boxes = vc.tile_boxes_plain(lon, lat, best)  # (n, 6)
+    n = boxes.shape[0]
+    bounds = _onto_tile_box_edges(bounds, boxes)
+    a0, b0, a1, b1 = (bounds[:, i:i + 1] for i in range(4))
+    lat_ok = (b0 < boxes[:, 5]) & (boxes[:, 4] < b1)  # (F, n)
+    hit_lon = lat_ok & (a0 < boxes[:, 1]) & (boxes[:, 0] < a1)
+    hit_w = lat_ok & (a0 < boxes[:, 3]) & (boxes[:, 2] < a1)
+    F = bounds.shape[0]
+    pad_f = -F % group
+
+    def by_group(hit):
+        h = torch.nn.functional.pad(hit, (0, 0, 0, pad_f))
+        h = h.view(-1, group, n).any(1, keepdim=True).expand(-1, group, n)
+        return h.reshape(-1, n)[:F]
+
+    run_lon, run_w = by_group(hit_lon), by_group(hit_w)
+    pad_l = n * vc.TILE - lon.shape[0]
+    nan = float("nan")
+    lo = torch.nn.functional.pad(lon, (0, pad_l), value=nan).view(n, -1)
+    la = torch.nn.functional.pad(torch.where(best, lat, nan), (0, pad_l),
+                                 value=nan).view(n, -1)
+    lw = lo + 360.0
+    e = (slice(None), slice(None), None)  # (F, n) -> (F, n, 1)
+    a0, b0, a1, b1 = (x[..., None] for x in (a0, b0, a1, b1))
+    in_lon = (lo > a0) & (lo < a1) & run_lon[e]
+    in_w = (lw > a0) & (lw < a1) & run_w[e]
+    inside = (in_lon | in_w) & (la > b0) & (la < b1)
+    return inside.sum((1, 2), dtype=torch.int32), bounds
+
+
+@pytest.mark.parametrize("group", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("order", ["regions", "shuffled"])
+def test_tiled_cull_matches_plain_and_jax(order, dtype, group):
+    bounds, lon, lat, best = _cull_case(order)
+    args = [torch.as_tensor(a, dtype=dtype) for a in (bounds, lon, lat)]
+    best_t = torch.as_tensor(best)
+    got, bounds_t = _tiled_count(*args, best_t, group)
+    want = vc.visible_count_plain(bounds_t, args[1], args[2], best_t)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    want_jax = np.asarray(matching.visible_count_reference(
+        jnp.asarray(bounds_t.numpy(), jdt), jnp.asarray(lon, jdt),
+        jnp.asarray(lat, jdt), jnp.asarray(best.astype(np.float64), jdt)))
+    np.testing.assert_array_equal(want.numpy(), want_jax)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # the case exercises what it claims: hits through lon + 360, the
+    # empty tile's box, inf boxes that see every accepted landmark
+    boxes = vc.tile_boxes_plain(args[1], args[2], best_t)
+    assert torch.isinf(boxes[2]).all() and (boxes[2, 0::2] > 0).all()
+    assert want[:8].sum() > 0 and want[8] == want[10] == want[11] == 0
+    assert int(want[9]) == int(best.sum())
+    assert (want > 0).sum() > 20

@@ -13,6 +13,10 @@ no ``-rdc``.
 The library lands in ``build/torch_kernels/`` beside the package (the file
 name carries a hash of the source, so an edited source rebuilds), at the
 first call that needs it.  Nothing here runs at import time.
+
+`Entry` is the lean launch path of a C entry point: resolved and bound
+once, then each call passes the pointers, the sizes and the current stream
+of the tensors' device, and raises on a nonzero return.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -72,3 +78,36 @@ def load(name: str, src: Path | None = None) -> ctypes.CDLL:
         build_logs[name] = proc.stderr
     _loaded[name] = ctypes.CDLL(str(lib))
     return _loaded[name]
+
+
+class Entry:
+    """The C function `symbol` of csrc/<lib>.cu, whose last parameter is a
+    cudaStream_t and which returns cudaGetLastError() after its launches.
+    Built, resolved and given its argtypes (those before the stream) at the
+    first call; `entry(device, *args)` then launches on the current stream
+    of `device`, entering that device only when it is not the current one,
+    and raises RuntimeError on a nonzero return."""
+
+    def __init__(self, lib: str, symbol: str, argtypes):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self._fn = None
+
+    def _bind(self):
+        fn = getattr(load(self.lib), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def __call__(self, device: torch.device, *args) -> None:
+        fn = self._fn or self._bind()
+        idx = device.index
+        if idx == torch._C._cuda_getDevice():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+        else:
+            with torch.cuda.device(idx):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.symbol} launch failed: CUDA error {rc}")

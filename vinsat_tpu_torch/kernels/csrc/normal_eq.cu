@@ -10,97 +10,199 @@
 //     G[n] = sum_d sum_k w[n,d] J[n,d,k,:]^T J[n,d,k,:]     (9 x 9)
 //     g[n] = sum_d sum_k w[n,d] J[n,d,k,:]^T r[n,d,k]       (9)
 // with the arithmetic of assemble_normal_eq_reference (normal_eq.py:87):
-// each Jacobian row is first weighted (JW = J * w), then multiplied, and
-// the 2D rows are summed in order d = 0..D-1, k = 0..1.  It is instantiated
-// for f32 and f64; the wrapper casts for the TPU kernel's f32 contract.
+// each Jacobian entry is first weighted (JW = J * w, rounded), then
+// multiplied, and the 2D rows are summed in order d = 0..D-1, k = 0..1.
+// G is symmetric: the 45 entries i <= j are computed as
+// sum (w J_i) J_j and mirrored on store, so G_ji is that same value where
+// the reference forms sum (w J_j) J_i, which may differ in the last bit
+// (the 1e-12 relative tests hold it).
+//
+// Types: f64 in and sums, f32 in and sums, or f64 in with f32 sums (the TPU
+// kernel's contract, `f32=True`): each value is rounded to f32 as it is
+// loaded (round to nearest, as .float() does), the sums run in f32 and the
+// results are stored as f64 -- the arithmetic of cast-then-f32-kernel in
+// one launch.
 //
 // What bounds it on this card: the bytes.  At the long arc's shape (2168
 // knots, D = 4, f64) it reads 72 + 8 + 4 doubles and writes 90 per knot,
-// ~3 MB in all (~0.9 us at 3.35 TB/s), and does 2 x 8 x 90 flops per knot
-// (3.1 Mflop, ~0.1 us at the f64 peak).  Either way it sits at the launch
-// latency; it runs once per LM iteration.
+// ~3.0 MB in all (~0.9 us at 3.35 TB/s), and does 8 x (9 + 2 x 54) flops
+// per knot (2 Mflop, well under 0.1 us).  Either way it sits near the
+// launch latency; it runs once per LM iteration.
 //
-// What the design does about it: a block takes KNOTS_PER_BLOCK knots, and
-// its threads first copy each knot's 2D x 9 Jacobian rows, residuals and
-// weights from device memory into shared memory with neighbouring threads
-// on neighbouring addresses (one coalesced pass over the block's
-// contiguous slice), weighting the rows as they land.  Then each of 90
-// threads per knot owns one output (81 entries of G, 9 of g) and reduces
-// over the 2D rows in a register.  The TPU layout (knots tiled by 8 on
-// sublanes, the D * 18 Jacobian entries on lanes, G and g packed into a
-// 128-lane output row) does not carry over: the outputs are written
-// straight to (N, 9, 9) and (N, 9).
+// What the design does about it: a warp per knot and no block barrier.
+// The warp copies its knot's 18D + 2D + D contiguous values into its own
+// shared-memory slot with 16-byte loads (8-byte in f32) -- where D is
+// known at compile time, every load issued before the first shared store,
+// so that the warp waits on memory once -- then __syncwarp.  Each lane
+// owns about two of the 54 outputs (45 of G, 9 of g) and reduces over the
+// 2D rows in a register; the output-to-(i, j) map is worked out once per
+// lane without a divide.  D is a template parameter for the long arc's
+// D = 4 (loops unrolled), with a runtime-D instantiation for the rest.
+// The TPU layout (knots tiled by 8 on sublanes, G and g packed into a
+// 128-lane row) does not carry over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int KNOTS_PER_BLOCK = 4;
-constexpr int OUTS = 90;  // 81 entries of G, then 9 of g
+constexpr int WARPS_PER_BLOCK = 4;
+constexpr int N_SYM = 45;  // entries i <= j of the 9 x 9 G
+constexpr int N_OUT = 54;  // then the 9 of g
 
-template <typename T>
-__global__ void normal_eq_kernel(const T* __restrict__ J,
-                                 const T* __restrict__ r,
-                                 const T* __restrict__ w, T* __restrict__ G,
-                                 T* __restrict__ g, int64_t N, int D) {
-  extern __shared__ unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int R = 2 * D;  // Jacobian rows per knot
-  // per knot: J rows (R x 9), weighted rows (R x 9), residuals (R)
-  const int per_knot = 19 * R;
-  const int64_t n0 = (int64_t)blockIdx.x * KNOTS_PER_BLOCK;
-  const int nk = (int)((N - n0) < KNOTS_PER_BLOCK ? (N - n0) : KNOTS_PER_BLOCK);
+template <typename T> struct Vec2;
+template <> struct Vec2<double> { using type = double2; };
+template <> struct Vec2<float> { using type = float2; };
 
-  // stage: J and r are contiguous over the block's knots
-  const int nJ = nk * R * 9;
-  for (int i = threadIdx.x; i < nJ; i += blockDim.x) {
-    const int kn = i / (R * 9);
-    const int e = i - kn * (R * 9);
-    const int row = e / 9;
-    const T v = J[n0 * R * 9 + i];
-    T* s = smem + kn * per_knot;
-    s[e] = v;
-    s[R * 9 + e] = v * w[(n0 + kn) * D + row / 2];
+// Copy count values from src to the warp's slot dst, rounding each to Acc;
+// as pairs (16 bytes in f64) where src and count allow.
+template <typename In, typename Acc>
+__device__ __forceinline__ void stage(const In* __restrict__ src, Acc* dst,
+                                      int count, bool pairs, int lane) {
+  if (pairs && (count & 1) == 0) {
+    using V = typename Vec2<In>::type;
+    const V* s = reinterpret_cast<const V*>(src);
+#pragma unroll
+    for (int i = lane; i < count / 2; i += 32) {
+      const V v = __ldg(s + i);
+      dst[2 * i] = (Acc)v.x;
+      dst[2 * i + 1] = (Acc)v.y;
+    }
+  } else {
+    for (int i = lane; i < count; i += 32) dst[i] = (Acc)__ldg(src + i);
   }
-  for (int i = threadIdx.x; i < nk * R; i += blockDim.x) {
-    const int kn = i / R;
-    smem[kn * per_knot + 18 * R + (i - kn * R)] = r[n0 * R + i];
-  }
-  __syncthreads();
+}
 
-  for (int o = threadIdx.x; o < nk * OUTS; o += blockDim.x) {
-    const int kn = o / OUTS;
-    const int q = o - kn * OUTS;
-    const T* Js = smem + kn * per_knot;
-    const T* JWs = Js + R * 9;
-    const T* rs = Js + 18 * R;
-    T acc = T(0);
-    if (q < 81) {
-      const int i = q / 9, j = q % 9;
-      for (int row = 0; row < R; ++row) acc += JWs[row * 9 + i] * Js[row * 9 + j];
-      G[(n0 + kn) * 81 + q] = acc;
-    } else {
-      const int i = q - 81;
-      for (int row = 0; row < R; ++row) acc += JWs[row * 9 + i] * rs[row];
-      g[(n0 + kn) * 9 + i] = acc;
+// The same for a compile-time (even) D: the knot's J, r and w as one run
+// of pairs into the slot (they lie one after another there), every load
+// issued before the first store, so that a warp waits on memory once.
+template <typename In, typename Acc, int DT>
+__device__ __forceinline__ void stage_all(const In* __restrict__ J,
+                                          const In* __restrict__ r,
+                                          const In* __restrict__ w,
+                                          Acc* slot, int64_t n, int lane) {
+  static_assert(DT > 0 && DT % 2 == 0, "pairs of w need an even D");
+  using V = typename Vec2<In>::type;
+  constexpr int NJ = 9 * DT, NR = DT, S = NJ + NR + DT / 2;
+  constexpr int K = (S + 31) / 32;
+  const V* Jv = reinterpret_cast<const V*>(J + n * 18 * DT);
+  const V* rv = reinterpret_cast<const V*>(r + n * 2 * DT);
+  const V* wv = reinterpret_cast<const V*>(w + n * DT);
+  V v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = lane + 32 * k;
+    v[k] = q < NJ        ? __ldg(Jv + q)
+           : q < NJ + NR ? __ldg(rv + (q - NJ))
+           : q < S       ? __ldg(wv + (q - NJ - NR))
+                         : V{};
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int q = lane + 32 * k;
+    if (q < S) {
+      slot[2 * q] = (Acc)v[k].x;
+      slot[2 * q + 1] = (Acc)v[k].y;
     }
   }
 }
 
-template <typename T>
-int launch(const T* J, const T* r, const T* w, T* G, T* g, int64_t N, int D,
-           cudaStream_t st) {
+// One output of the knot: G[i][j] (j < 9) or g[i] (j = 9), summed over
+// the R rows of the warp's slot.
+template <typename Acc, int DT>
+__device__ __forceinline__ Acc reduce_one(const Acc* Js, const Acc* rs,
+                                          const Acc* ws, int i, int j,
+                                          int D) {
+  const int R = DT > 0 ? 2 * DT : 2 * D;
+  // column j of J, or the residuals for g
+  const Acc* col = j < 9 ? Js + j : rs;
+  const int stride = j < 9 ? 9 : 1;
+  Acc acc = Acc(0);
+#pragma unroll
+  for (int row = 0; row < R; ++row) {
+    const Acc jw = Js[row * 9 + i] * ws[row >> 1];
+    acc += jw * col[row * stride];
+  }
+  return acc;
+}
+
+template <typename In, typename Acc, int DT>
+__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+    normal_eq_kernel(const In* __restrict__ J, const In* __restrict__ r,
+                     const In* __restrict__ w, In* __restrict__ G,
+                     In* __restrict__ g, int64_t N, int D_rt, bool pairs) {
+  extern __shared__ unsigned char smem_raw[];
+  const int D = DT > 0 ? DT : D_rt;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t n = (int64_t)blockIdx.x * WARPS_PER_BLOCK + warp;
+  if (n >= N) return;  // warp-uniform
+  const int slot = 21 * D;  // J (18D), r (2D), w (D)
+  Acc* Js = reinterpret_cast<Acc*>(smem_raw) + warp * slot;
+  Acc* rs = Js + 18 * D;
+  Acc* ws = rs + 2 * D;
+  bool staged = false;
+  if constexpr (DT > 0) {
+    if (pairs) {
+      stage_all<In, Acc, DT>(J, r, w, Js, n, lane);
+      staged = true;
+    }
+  }
+  if (!staged) {
+    stage(J + n * 18 * D, Js, 18 * D, pairs, lane);
+    stage(r + n * 2 * D, rs, 2 * D, pairs, lane);
+    stage(w + n * D, ws, D, pairs, lane);
+  }
+  __syncwarp();
+
+  // this lane's outputs: q = lane (always in G) and q = lane + 32; q < 45
+  // is G's upper-triangle entry q (row-major), then g's 9
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = lane + 32 * h;
+    if (q >= N_OUT) break;
+    int i, j;
+    if (q < N_SYM) {  // walk the upper triangle's rows of 9, 8, ..., 1
+      int rem = q;
+      i = 0;
+      while (rem >= 9 - i) {
+        rem -= 9 - i;
+        ++i;
+      }
+      j = i + rem;
+    } else {
+      i = q - N_SYM;
+      j = 9;
+    }
+    const Acc v = reduce_one<Acc, DT>(Js, rs, ws, i, j, D);
+    if (j < 9) {
+      G[n * 81 + i * 9 + j] = (In)v;
+      if (i != j) G[n * 81 + j * 9 + i] = (In)v;
+    } else {
+      g[n * 9 + i] = (In)v;
+    }
+  }
+}
+
+template <typename In, typename Acc>
+int launch(const In* J, const In* r, const In* w, In* G, In* g, int64_t N,
+           int D, cudaStream_t st) {
   if (N == 0) return 0;
   if (D <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)KNOTS_PER_BLOCK * 19 * 2 * D * sizeof(T);
+  const size_t smem = (size_t)WARPS_PER_BLOCK * 21 * D * sizeof(Acc);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = 2 * sizeof(In);
+  const bool pairs = (((uintptr_t)J | (uintptr_t)r | (uintptr_t)w) %
+                      align) == 0;
   const unsigned blocks =
-      (unsigned)((N + KNOTS_PER_BLOCK - 1) / KNOTS_PER_BLOCK);
-  // 96 threads (three warps) per knot: each of the block's
-  // KNOTS_PER_BLOCK x 90 outputs has a thread of its own
-  normal_eq_kernel<T><<<blocks, 96 * KNOTS_PER_BLOCK, smem, st>>>(
-      J, r, w, G, g, N, D);
+      (unsigned)((N + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
+  const unsigned threads = 32 * WARPS_PER_BLOCK;
+  if (D == 4)
+    normal_eq_kernel<In, Acc, 4><<<blocks, threads, smem, st>>>(
+        J, r, w, G, g, N, D, pairs);
+  else
+    normal_eq_kernel<In, Acc, 0><<<blocks, threads, smem, st>>>(
+        J, r, w, G, g, N, D, pairs);
   return (int)cudaGetLastError();
 }
 
@@ -109,17 +211,26 @@ int launch(const T* J, const T* r, const T* w, T* G, T* g, int64_t N, int D,
 extern "C" {
 
 // J (N,D,2,9), r (N,D,2), w (N,D) of one dtype (is_f64: 1 double, 0
-// float); G (N,9,9) and g (N,9) outputs of the same dtype — all contiguous
-// device memory.  Launches on `stream`; returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a D the shared memory cannot hold).
+// float); G (N,9,9) and g (N,9) outputs of the same dtype -- all
+// contiguous device memory.  f32_sums: sum in f32 (f64 inputs are rounded
+// on load, the results stored as f64).  Launches on `stream`; returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a D the
+// shared memory cannot hold).
 int vinsat_normal_eq(const void* J, const void* r, const void* w, void* G,
-                     void* g, long long N, int D, int is_f64, void* stream) {
+                     void* g, long long N, int D, int is_f64, int f32_sums,
+                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (is_f64 && !f32_sums)
+    return launch<double, double>((const double*)J, (const double*)r,
+                                  (const double*)w, (double*)G, (double*)g,
+                                  N, D, st);
   if (is_f64)
-    return launch<double>((const double*)J, (const double*)r,
-                          (const double*)w, (double*)G, (double*)g, N, D, st);
-  return launch<float>((const float*)J, (const float*)r, (const float*)w,
-                       (float*)G, (float*)g, N, D, st);
+    return launch<double, float>((const double*)J, (const double*)r,
+                                 (const double*)w, (double*)G, (double*)g,
+                                 N, D, st);
+  return launch<float, float>((const float*)J, (const float*)r,
+                              (const float*)w, (float*)G, (float*)g, N, D,
+                              st);
 }
 
 }  // extern "C"

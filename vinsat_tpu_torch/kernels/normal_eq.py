@@ -8,7 +8,8 @@ PyTorch twin, the arithmetic of normal_eq.assemble_normal_eq_reference.
 `assemble_normal_eq` dispatches on the tensors' device: a CPU tensor runs
 the plain twin, a CUDA tensor launches the kernel (built from the source at
 first use) or raises.  It assembles in the inputs' dtype; `f32=True` keeps
-the TPU kernel's contract (inputs cast to f32, the result cast back).
+the TPU kernel's contract (inputs rounded to f32, f32 sums, the result in
+the inputs' dtype), which the kernel does in its one launch.
 `assemble_normal_eq.launches` counts kernel launches, so a run can show it
 went through the kernel.
 """
@@ -33,60 +34,48 @@ def assemble_normal_eq_plain(J, r, w, f32: bool = False):
     return G.to(dtype), g.to(dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("normal_eq")
-    if lib.vinsat_normal_eq.argtypes is None:
-        lib.vinsat_normal_eq.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.vinsat_normal_eq.restype = ctypes.c_int
-    return lib
-
-
-def _launch(J, r, w):
-    N, D = J.shape[0], J.shape[1]
-    lib = _lib()
-    G = torch.empty((N, 9, 9), dtype=J.dtype, device=J.device)
-    g = torch.empty((N, 9), dtype=J.dtype, device=J.device)
-    with torch.cuda.device(J.device):
-        stream = torch.cuda.current_stream(J.device).cuda_stream
-        rc = lib.vinsat_normal_eq(
-            J.data_ptr(), r.data_ptr(), w.data_ptr(), G.data_ptr(),
-            g.data_ptr(), N, D, int(J.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(f"normal_eq kernel launch failed: CUDA error {rc}")
-    assemble_normal_eq.launches += 1
-    return G, g
+_ENTRY = _build.Entry("normal_eq", "vinsat_normal_eq", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int])
+_FLOATS = (torch.float32, torch.float64)
 
 
 def assemble_normal_eq(J, r, w, f32: bool = False):
     """Fused JᵀWJ + JᵀWr for per-knot observation budgets.  J (N, D, 2, 9);
     r (N, D, 2) residuals; w (N, D) weights (0 for invalid slots), all of
     one float dtype (f32 or f64) on one device.  Returns (G (N, 9, 9),
-    g (N, 9)) in that dtype; with f32=True the sums run in f32."""
-    if J.dim() != 4 or J.shape[2:] != (2, 9):
-        raise ValueError(f"J must be (N, D, 2, 9), got {tuple(J.shape)}")
-    N, D = J.shape[0], J.shape[1]
+    g (N, 9)) in that dtype; with f32=True the sums run in f32.  On the
+    card G and g are views of one buffer, each contiguous."""
+    shape = J.shape
+    if len(shape) != 4 or shape[2] != 2 or shape[3] != 9:
+        raise ValueError(f"J must be (N, D, 2, 9), got {tuple(shape)}")
+    N, D = shape[0], shape[1]
     if r.shape != (N, D, 2) or w.shape != (N, D):
         raise ValueError(f"r must be (N, D, 2) and w (N, D) for J "
-                         f"{tuple(J.shape)}, got {tuple(r.shape)}, "
+                         f"{tuple(shape)}, got {tuple(r.shape)}, "
                          f"{tuple(w.shape)}")
-    if J.dtype not in (torch.float32, torch.float64) or not (
-            r.dtype == w.dtype == J.dtype):
+    dtype = J.dtype
+    if dtype not in _FLOATS or r.dtype is not dtype or w.dtype is not dtype:
         raise TypeError("J, r, w must share one dtype, float32 or float64")
-    if not (r.device == w.device == J.device):
+    dev = J.device
+    if r.device != dev or w.device != dev:
         raise ValueError("J, r, w must lie on one device")
-    if J.device.type == "cpu":
-        return assemble_normal_eq_plain(J, r, w, f32=f32)
-    if J.device.type == "cuda":
-        if not all(t.is_contiguous() for t in (J, r, w)):
-            raise ValueError("normal_eq kernel needs contiguous inputs")
-        if f32 and J.dtype == torch.float64:
-            G, g = _launch(J.float(), r.float(), w.float())
-            return G.double(), g.double()
-        return _launch(J, r, w)
-    raise ValueError(f"no normal_eq for device {J.device}")
+    if not J.is_cuda:
+        if dev.type == "cpu":
+            return assemble_normal_eq_plain(J, r, w, f32=f32)
+        raise ValueError(f"no normal_eq for device {dev}")
+    if not (J.is_contiguous() and r.is_contiguous() and w.is_contiguous()):
+        raise ValueError("normal_eq kernel needs contiguous inputs")
+    # G then g in one buffer (as_strided is the cheapest pair of views)
+    out = J.new_empty(N * 90)
+    ptr = out.data_ptr()
+    _ENTRY(dev, J.data_ptr(), r.data_ptr(), w.data_ptr(), ptr,
+           ptr + N * 81 * J.element_size(), N, D, dtype is torch.float64,
+           f32)
+    assemble_normal_eq.launches += 1
+    return (out.as_strided((N, 9, 9), (81, 9, 1)),
+            out.as_strided((N, 9), (9, 1), N * 81))
 
 
 assemble_normal_eq.launches = 0

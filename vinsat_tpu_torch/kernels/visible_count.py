@@ -7,8 +7,11 @@ the arithmetic of matching.visible_count_reference.
 
 `visible_count` dispatches on the tensors' device: a CPU tensor runs the
 plain twin, a CUDA tensor launches the kernel (built from the source at
-first use) or raises.  `visible_count.launches` counts kernel launches, so
-a run can show it went through the kernel.
+first use) or raises.  On the card one call is two device kernels: the
+tile boxes (`tile_boxes_plain` is their twin), then the count, which skips
+every tile whose box no frame of a block can meet.
+`visible_count.launches` counts calls that launch the kernel, so a run can
+show it went through the kernel.
 """
 from __future__ import annotations
 
@@ -33,32 +36,73 @@ def visible_count_plain(bounds, lon, lat, best):
     return inside.sum(dim=1, dtype=torch.int32)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("visible_count")
-    if lib.vinsat_visible_count.argtypes is None:
-        lib.vinsat_visible_count.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        lib.vinsat_visible_count.restype = ctypes.c_int
-    return lib
+# landmarks per tile, csrc/visible_count.cu's TILE (its entry points check
+# the box scratch's size against it)
+TILE = 128
 
 
-def _launch(bounds, lon, lat, best):
-    F, L = bounds.shape[0], lon.shape[0]
-    lib = _lib()
-    out = torch.empty(F, dtype=torch.int32, device=bounds.device)
-    with torch.cuda.device(bounds.device):
-        stream = torch.cuda.current_stream(bounds.device).cuda_stream
-        rc = lib.vinsat_visible_count(
-            bounds.data_ptr(), lon.data_ptr(), lat.data_ptr(),
-            best.data_ptr(), out.data_ptr(), F, L,
-            int(bounds.dtype == torch.float64), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"visible_count kernel launch failed: CUDA error {rc}")
-    visible_count.launches += 1
-    return out
+def tile_boxes_plain(lon, lat, best):
+    """Plain PyTorch twin of the kernel's first launch: per tile of TILE
+    landmarks, (lon_min, lon_max, lonw_min, lonw_max, lat_min, lat_max)
+    over its accepted landmarks with lonw = lon + 360 in the input's dtype,
+    NaN values left out; a tile with none has the empty box (+inf, -inf).
+    lon, lat (L,); best (L,) bool -> (ceil(L / TILE), 6)."""
+    L = lon.shape[0]
+    n = -(-L // TILE)
+    cols = torch.stack([lon, lon + 360.0, lat])  # (3, L)
+    keep = best & ~cols.isnan()
+    inf = float("inf")
+    pad = (0, n * TILE - L)
+    lo = torch.nn.functional.pad(torch.where(keep, cols, inf), pad,
+                                 value=inf)
+    hi = torch.nn.functional.pad(torch.where(keep, cols, -inf), pad,
+                                 value=-inf)
+    mins = lo.view(3, n, TILE).amin(-1)
+    maxs = hi.view(3, n, TILE).amax(-1)
+    return torch.stack([mins, maxs], dim=-1).permute(1, 0, 2).reshape(n, 6)
+
+
+_COUNT = _build.Entry("visible_count", "vinsat_visible_count", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_longlong, ctypes.c_int])
+_BOXES = _build.Entry("visible_count", "vinsat_visible_count_tile_boxes", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int])
+_FLOATS = (torch.float32, torch.float64)
+
+
+def _check_landmarks(lon, lat, best):
+    L = lon.shape[0]
+    if lon.dim() != 1 or lat.shape != (L,) or best.shape != (L,):
+        raise ValueError("lon, lat, best must all be (L,)")
+    if lon.dtype not in _FLOATS or lat.dtype != lon.dtype:
+        raise TypeError("lon, lat must share one dtype, float32 or float64")
+    if best.dtype != torch.bool:
+        raise TypeError(f"best must be bool, got {best.dtype}")
+    if lat.device != lon.device or best.device != lon.device:
+        raise ValueError("lon, lat, best must lie on one device")
+    return L
+
+
+def tile_boxes(lon, lat, best):
+    """The tile boxes of `tile_boxes_plain` (TILE landmarks a tile): on a
+    CUDA tensor from the kernel's first launch alone, on a CPU tensor from
+    the twin."""
+    L = _check_landmarks(lon, lat, best)
+    dev = lon.device
+    if dev.type == "cpu":
+        return tile_boxes_plain(lon, lat, best)
+    if dev.type != "cuda":
+        raise ValueError(f"no tile_boxes for device {dev}")
+    if not (lon.is_contiguous() and lat.is_contiguous()
+            and best.is_contiguous()):
+        raise ValueError("tile_boxes kernel needs contiguous inputs")
+    n = -(-L // TILE)
+    boxes = torch.empty((n, 6), dtype=lon.dtype, device=dev)
+    _BOXES(dev, lon.data_ptr(), lat.data_ptr(), best.data_ptr(),
+           boxes.data_ptr(), L, n, lon.dtype == torch.float64)
+    return boxes
 
 
 def visible_count(bounds, lon, lat, best):
@@ -67,24 +111,28 @@ def visible_count(bounds, lon, lat, best):
     f64); best (L,) bool.  Returns (F,) int32 on the inputs' device."""
     if bounds.dim() != 2 or bounds.shape[1] != 4:
         raise ValueError(f"bounds must be (F, 4), got {tuple(bounds.shape)}")
-    L = lon.shape[0]
-    if lon.dim() != 1 or lat.shape != (L,) or best.shape != (L,):
-        raise ValueError("lon, lat, best must all be (L,)")
-    if bounds.dtype not in (torch.float32, torch.float64) or not (
-            lon.dtype == lat.dtype == bounds.dtype):
+    L = _check_landmarks(lon, lat, best)
+    if bounds.dtype != lon.dtype:
         raise TypeError("bounds, lon, lat must share one dtype, float32 or "
                         "float64")
-    if best.dtype != torch.bool:
-        raise TypeError(f"best must be bool, got {best.dtype}")
-    if not (lon.device == lat.device == best.device == bounds.device):
+    dev = bounds.device
+    if lon.device != dev:
         raise ValueError("bounds, lon, lat, best must lie on one device")
-    if bounds.device.type == "cpu":
+    if dev.type == "cpu":
         return visible_count_plain(bounds, lon, lat, best)
-    if bounds.device.type == "cuda":
-        if not all(t.is_contiguous() for t in (bounds, lon, lat, best)):
-            raise ValueError("visible_count kernel needs contiguous inputs")
-        return _launch(bounds, lon, lat, best)
-    raise ValueError(f"no visible_count for device {bounds.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no visible_count for device {dev}")
+    if not (bounds.is_contiguous() and lon.is_contiguous()
+            and lat.is_contiguous() and best.is_contiguous()):
+        raise ValueError("visible_count kernel needs contiguous inputs")
+    F, n = bounds.shape[0], -(-L // TILE)
+    out = torch.empty(F, dtype=torch.int32, device=dev)
+    boxes = torch.empty(n * 6, dtype=lon.dtype, device=dev)
+    _COUNT(dev, bounds.data_ptr(), lon.data_ptr(), lat.data_ptr(),
+           best.data_ptr(), boxes.data_ptr(), out.data_ptr(), F, L, n,
+           lon.dtype == torch.float64)
+    visible_count.launches += 1
+    return out
 
 
 visible_count.launches = 0
