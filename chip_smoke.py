@@ -68,10 +68,31 @@ Phases (each prints its lines; any failure exits non-zero):
      launch);
  12. the port's own long arc: simulate_sequence(1, duration_s=10800,
      frame_stride=5, along_track=True) on cuda, then solved as in 11:
-     finite, median error under 5 km, K3 and K2 launched.
-The last two lines are the card's nvidia-smi line and the device JSON
-line; the kernels' JSON record comes before them.  Needs torch with CUDA
-and nvcc; imports no JAX.
+     finite, median error under 5 km, K3 and K2 launched;
+ 13. config 4, the constellation, from JAX's data: the 8 sequences of
+     tests/data/torch_constellation.npz (seeds 0-7, 3600 s, frame_stride
+     5, along track) simulated on cuda from JAX's draws (rows as in 6),
+     prepared as one batch (JAX's orbits, n_pad and m_pad) and solved by
+     one solve_window_batch, 20 iterations (10 vision-only), f64: states
+     after iteration 1 within 1e-9 relative of JAX's, each orbit's median
+     error within 1e-3 km of JAX's; every K1 launch of the solve at
+     (B, N) = (orbits, n_pad); the batched wall and orbit-frames/s, the
+     peak device memory; the same 8 problems solved one at a time through
+     the single-orbit _solve_window (equal within 1e-9, their wall); one
+     batched and one single-orbit iteration under torch.profiler; K1 at
+     (8, n_pad) against its twin: 1e-9 on random scaled blocks; on the
+     run's first system (ill-conditioned blocks) 3e-8, beside Thomas and
+     the dense LU, and a backward error of 1e-14; on its last system
+     3e-11; its time, device time, bound and the dense
+     torch.linalg.solve's time;
+ 14. the evaluation: the mode-b sequence of 7 streamed on cuda and held
+     to tests/data/torch_eval_seed1.npz (windows and time to 5 km equal,
+     final error within 0.01 km, terminal_crlb_km's three bounds within
+     1e-6 relative); then run_batch_eval([0, 1]) at 10800 s from the
+     port's own generator: a finite summary and its per-orbit rows.
+Each phase prints its seconds.  The last two lines are the card's
+nvidia-smi line and the device JSON line; the kernels' JSON record comes
+before them.  Needs torch with CUDA and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
@@ -88,6 +109,8 @@ STREAM_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_stream_seed1.npz")
 SIM_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_sim_seed1.npz")
 LONGARC_FIXTURE = os.path.join(ROOT, "tests", "data",
                                "torch_longarc_seed1.npz")
+CONST_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_constellation.npz")
+EVAL_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_eval_seed1.npz")
 K1_SOURCE = "vinsat_tpu_torch/kernels/csrc/tridiag_pcr.cu"
 K1_REPLACES = "vinsat_tpu/kernels/tridiag_pallas.py:157"
 K3_SOURCE = "vinsat_tpu_torch/kernels/csrc/visible_count.cu"
@@ -147,6 +170,17 @@ def _dense(D, U):
     A[:, i[:-1], :, i[1:], :] = U.transpose(0, 1)
     A[:, i[1:], :, i[:-1], :] = U.transpose(0, 1).transpose(-1, -2)
     return A.reshape(Bn, N * k, N * k)
+
+
+def _backward(D, U, b, x) -> float:
+    """Normwise backward error of x for the block-tridiagonal system:
+    max |A x - b| / (max |D| max |x| + max |b|).  A stable solve gives a
+    few ulp whatever the conditioning."""
+    r = (D @ x[..., None])[..., 0] - b
+    r[:, :-1] += (U @ x[:, 1:, :, None])[..., 0]
+    r[:, 1:] += (U.transpose(-1, -2) @ x[:, :-1, :, None])[..., 0]
+    return float(r.abs().max()
+                 / (D.abs().max() * x.abs().max() + b.abs().max()))
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -449,7 +483,7 @@ def main() -> int:
     from vinsat_tpu_torch.core import dynamics
     from vinsat_tpu_torch.dist import long_arc, mesh
     from vinsat_tpu_torch.estimation import ba, ingest, refine, window
-    from vinsat_tpu_torch.evalx import ate
+    from vinsat_tpu_torch.evalx import ate, crlb
     from vinsat_tpu_torch.kernels import (_build, normal_eq, tridiag_pcr,
                                           visible_count)
     from vinsat_tpu_torch.sim import camera, detections, mgrs
@@ -465,12 +499,21 @@ def main() -> int:
     k2_plain = normal_eq.assemble_normal_eq_plain
     la_fx = np.load(LONGARC_FIXTURE)
 
+    phase_t = [time.time()]
+
+    def phase_done(n: int) -> None:
+        now = time.time()
+        print(f"phase {n}: {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
+
     # 1. device
     name = torch.cuda.get_device_name(0)
     smi = _smi()
     print(f"device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     print(f"nvidia-smi: {smi}")
+
+    phase_done(1)
 
     # 2. build every kernel at once
     kernels = ("tridiag_pcr", "normal_eq", "visible_count")
@@ -486,6 +529,8 @@ def main() -> int:
     print(f"K1 resident warps (one cooperative grid): "
           f"{tridiag_pcr.resident_warps(torch.float64)} in f64, "
           f"{tridiag_pcr.resident_warps(torch.float32)} in f32")
+
+    phase_done(2)
 
     # 3. K1 against its plain twin (and Thomas) on the card
     rng = np.random.default_rng(0)
@@ -533,6 +578,8 @@ def main() -> int:
           f"{lib['magma']:.4f} ms (magma) (rel diff {err_d:.2e}), bound "
           f"{k1_bound[0]:.4f} ms ({k1_bound[1]})  "
           f"[{smi}]")
+
+    phase_done(3)
 
     # 4. the streaming slice on the card
     seed = int(fx["seed"])
@@ -587,8 +634,11 @@ def main() -> int:
                       for bn, c in sorted(k1_shapes.items())))
     _check(sum(k1_shapes.values()) == k1_launches, k1_shapes)
     wall = min(walls)
-    print(f"stream wall: cold {cold:.2f} s, timed {walls[0]:.2f} s / "
-          f"{walls[1]:.2f} s -> {DURATION_S / wall:.1f} frames/s  [{smi}]")
+    print(f"stream wall: cold {cold:.2f} s, timed "
+          + " / ".join(f"{w:.2f} s" for w in walls)
+          + f" -> {DURATION_S / wall:.1f} frames/s  [{smi}]")
+
+    phase_done(4)
 
     # 5. the tail refinement on the card
     N = len(res.final_states)
@@ -603,6 +653,8 @@ def main() -> int:
     print(f"refine_terminal: {N} knots, {len(prep.graph.ii)} observations, "
           f"{t_ref:.2f} s, rel err vs JAX {err:.3e}  [{smi}]")
     _check(np.isfinite(refined).all() and err <= 1e-6, err)
+
+    phase_done(5)
 
     # 6. the simulator, mode a, from JAX's draws; then streamed
     kw_a = json.loads(str(sim_fx["sim_kwargs_a"]))
@@ -629,6 +681,8 @@ def main() -> int:
           f"final_error_km {final_a:.6f} (JAX {ref_final:.6f})")
     _check(nw_a == 7 and t5_a == 275.0 and abs(final_a - ref_final) <= 0.01,
            (nw_a, t5_a, final_a))
+
+    phase_done(6)
 
     # 7. the simulator, mode b, from JAX's draws
     kw_b = json.loads(str(sim_fx["sim_kwargs_b"]))
@@ -669,6 +723,8 @@ def main() -> int:
     print(f"sim b stages: orbit rollout {step_us['orbit']:.1f} µs/step, "
           f"attitude rollout {step_us['attitude']:.1f} µs/step (1000-step "
           f"chains), detection stage {time.time() - t0:.3f} s  [{smi}]")
+
+    phase_done(7)
 
     # 8. K3 against its plain twin at mode b's inputs: the landmarks region
     # by region, as the simulator gives them, and in a seeded random order
@@ -740,6 +796,8 @@ def main() -> int:
                ("K3 small", got.tolist()))
     print("K3 small case (wrapped, empty, NaN, edge boxes): equal to plain")
 
+    phase_done(8)
+
     # 9. the main path from the port's own generator
     solve.launches = k3.launches = 0
     t0 = time.time()
@@ -761,6 +819,8 @@ def main() -> int:
     _check(nw9 >= 2 and float(res9.errors[-1]) < 5.0,
            (nw9, float(res9.errors[-1])))
     _check(k3_launches > 0, "K3 was not launched on the main path")
+
+    phase_done(9)
 
     # 10. K2 against its plain twin at the long arc's shape
     n_knots = len(la_fx["states0"])
@@ -806,6 +866,8 @@ def main() -> int:
           f"{k2_plain_ms:.4f} ms ({r[0]:.4f}, {r[3]:.4f}), the two einsums "
           f"{k2_lib_ms:.4f} ms, bound {k2_bound[0]:.6f} ms ({k2_bound[1]})"
           f"  [{smi}]")
+
+    phase_done(10)
 
     # 11. the long arc from JAX's data
     n_arc = int(la_fx["n_arc"])
@@ -880,6 +942,8 @@ def main() -> int:
         print("long arc profiled: the profiler saw no device activity; "
               "device busy share not measured")
 
+    phase_done(11)
+
     # 12. the port's own long arc
     solve.launches = k2.launches = k3.launches = 0
     t0 = time.time()
@@ -903,6 +967,281 @@ def main() -> int:
     _check(med12 < 5.0, med12)
     _check(k3_12 > 0 and k2_12 > 0, (k3_12, k2_12))
 
+    phase_done(12)
+
+    # 13. config 4, the constellation, from JAX's data
+    c4 = np.load(CONST_FIXTURE)
+    kw4 = json.loads(str(c4["sim_kwargs"]))
+    seeds4 = [int(v) for v in c4["seeds"]]
+    iters4, init4 = int(c4["num_iters"]), int(c4["init_iters"])
+    k3.launches = 0
+    t0 = time.time()
+    seqs4 = [pipeline.simulate_from_draws(_fixture_draws(c4, str(s4)),
+                                          device=dev, **kw4)
+             for s4 in seeds4]
+    wall_sim4 = time.time() - t0
+    k3_4 = k3.launches
+    print(f"config 4: {len(seeds4)} orbits simulated from JAX's draws in "
+          f"{wall_sim4:.2f} s ({kw4['duration_s']} s arcs, frame_stride "
+          f"{kw4['frame_stride']}), K3 launches {k3_4}  [{smi}]")
+    for s4, sq in zip(seeds4, seqs4):
+        _rows_check(f"config 4 seed {s4}", sq.det_rows, c4[f"det_rows_{s4}"],
+                    1e-9)
+    _check(k3_4 == len(seeds4), ("K3 launches in config 4's sims", k3_4))
+    batch = pipeline._prepare_constellation(
+        seeds4, seqs4, kw4["duration_s"], cfg, None, None, dev)
+    B4, n_pad4 = batch.states0.shape[0], batch.states0.shape[1]
+    m_pad4 = batch.prob.ii.shape[1]
+    print(f"config 4: orbits {batch.seeds} (JAX {c4['valid_seeds'].tolist()}"
+          f"), n_pad {n_pad4} (JAX {int(c4['n_pad'])}), m_pad {m_pad4} (JAX "
+          f"{int(c4['m_pad'])}), num_hops {batch.params.num_hops}")
+    _check(batch.seeds == c4["valid_seeds"].tolist()
+           and n_pad4 == int(c4["n_pad"]) and m_pad4 == int(c4["m_pad"]),
+           "config 4 batch")
+
+    def solve4(num_iters):
+        return window.solve_window_batch(
+            batch.states0, batch.prob, batch.lamda, init4, num_iters,
+            batch.params, sched_offset=-init4)[0]
+
+    it1 = solve4(1)
+    d1_4 = float((it1.cpu() - torch.as_tensor(c4["states_iter1"])).abs().max()
+                 / np.abs(c4["states_iter1"]).max())
+    print(f"config 4: states after iteration 1 rel err vs JAX {d1_4:.3e}")
+    _check(d1_4 <= 1e-9, ("config 4 iteration 1", d1_4))
+    # the main path, the sequences through the port's constellation entry:
+    # every K1 launch and its (B, N), and the first and last systems'
+    # inputs, recorded
+    solve.launches = k3.launches = 0
+    k1_shapes4 = collections.Counter()
+    k1_first, k1_last = [], []
+
+    def _recording_launch4(D, U, b):
+        k1_shapes4[tuple(D.shape[:2])] += 1
+        k1_last[:] = [a.clone() for a in (D, U, b)]
+        if not k1_first:
+            k1_first[:] = k1_last
+        return k1_launch(D, U, b)
+
+    torch.cuda.reset_peak_memory_stats()
+    tridiag_pcr._launch = _recording_launch4
+    try:
+        res4 = pipeline.constellation_from_sequences(
+            seeds4, seqs4, kw4["duration_s"], iters4, init4, cfg, device=dev)
+    finally:
+        tridiag_pcr._launch = k1_launch
+    k1_launches4 = solve.launches
+    peak4 = torch.cuda.max_memory_allocated() / 2**20
+    med4, wall4 = res4["median_errors_km"], res4["wall_s"]
+    _check(res4["orbit_seeds"] == batch.seeds and res4["num_orbits"] == B4,
+           ("config 4 orbits", res4["orbit_seeds"]))
+    # the same solve again, timed alone, for the states
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out4 = solve4(iters4)
+    torch.cuda.synchronize()
+    wall4_again = time.time() - t0
+    d_med = np.abs(np.array(med4) - c4["median_errors_km"])
+    d_med_t = np.abs(np.array(med4) - c4["median_errors_km_thomas"])
+    d_out = float((out4.cpu() - torch.as_tensor(c4["out_b"])).abs().max())
+    print(f"config 4: {iters4} iterations ({init4} vision-only) of {B4} "
+          f"orbits x N={n_pad4} in one batch: median errors "
+          + ", ".join(f"{e:.6f}" for e in med4)
+          + f" km; max |d| vs JAX {d_med.max():.3e} km (vs JAX's Thomas-solve "
+          f"run {d_med_t.max():.3e} km), max |d state| vs JAX {d_out:.3e}")
+    _check(np.isfinite(out4.cpu().numpy()).all(), "config 4 finite")
+    _check(float(d_med.max()) <= 1e-3, ("config 4 medians", d_med.tolist()))
+    med4_again = [float(np.median(np.linalg.norm(
+        out4[i, :len(gt), :3].cpu().numpy() - gt[:, :3], axis=-1)))
+        for i, gt in enumerate(batch.gt_states)]
+    _check(np.allclose(med4_again, med4, rtol=0, atol=1e-9),
+           ("config 4 repeat", med4_again, med4))
+    print(f"config 4: K1 launches {k1_launches4}, by (B, N): "
+          + ", ".join(f"{bn[0]}x{bn[1]}: {c}"
+                      for bn, c in sorted(k1_shapes4.items())))
+    _check(k1_launches4 > 0 and set(k1_shapes4) == {(B4, n_pad4)}
+           and sum(k1_shapes4.values()) == k1_launches4,
+           ("config 4 K1 launches", dict(k1_shapes4)))
+    _check(k3.launches == 0, ("K3 in the solve", k3.launches))
+    print(f"config 4 batched solve wall: {wall4:.2f} s (the entry's solve; "
+          f"{wall4_again:.2f} s again) -> "
+          f"{res4['orbit_frames_per_s']:.1f} orbit-frames/s; peak device "
+          f"memory {peak4:.1f} MiB  [{smi}]")
+
+    def orbit(prob_b, i):
+        return ba.BAProblem(*[
+            getattr(prob_b, f) if f == "intrinsics" else getattr(prob_b, f)[i]
+            for f in ba.BAProblem._fields])
+
+    # the same padded problems one orbit at a time
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seq_out = [window._solve_window(
+        batch.states0[i], orbit(batch.prob, i), float(batch.lamda[i]), init4,
+        iters4, batch.params, -init4)[0]
+        for i in range(B4)]
+    torch.cuda.synchronize()
+    wall4_seq = time.time() - t0
+    d_seq = float((torch.stack(seq_out) - out4).abs().max()
+                  / out4.abs().max())
+    print(f"config 4 sequential: {B4} single-orbit solves {wall4_seq:.2f} s "
+          f"({wall4_seq / wall4:.2f}x the batch) -> "
+          f"{B4 * kw4['duration_s'] / wall4_seq:.1f} orbit-frames/s; states "
+          f"rel err vs the batch {d_seq:.3e}  [{smi}]")
+    _check(d_seq <= 1e-9, ("batched vs sequential", d_seq))
+    # device kernels of one LM iteration (dynamics on): the batch, one orbit
+    one = orbit(batch.prob, 0)
+    for tag, fn in (
+            ("batched", lambda: ba.ba_iteration(
+                0, out4, batch.prob, batch.lamda, params=batch.params)),
+            ("one orbit", lambda: ba.ba_iteration(
+                0, out4[0], one, float(batch.lamda[0]),
+                params=batch.params))):
+        fn()
+        wall_p, per = _device_profile(fn)
+        if per:
+            n_dev = sum(c for c, _ in per.values())
+            busy = sum(t for _, t in per.values()) * 1e-3
+            k1_dev = [(c, t) for k, (c, t) in per.items() if "pcr" in k]
+            print(f"config 4 iteration profiled ({tag}): {n_dev} device "
+                  f"kernels and copies, device busy {busy:.2f} ms of "
+                  f"{1e3 * wall_p:.1f} ms ({100 * busy / (1e3 * wall_p):.1f}"
+                  f"%), K1 {k1_dev[0][0] if k1_dev else 0} launches, "
+                  f"{(k1_dev[0][1] / k1_dev[0][0]) if k1_dev else 0:.2f} µs "
+                  f"each  [{smi}]")
+        else:
+            print(f"config 4 iteration profiled ({tag}): the profiler saw "
+                  f"no device activity; not measured")
+    # K1 at config 4's shape: on Jacobi-scaled random blocks as phase 3
+    # (1e-9), then on the run's own first and last systems.  The first
+    # (vision-only: U = 0, so Thomas and the twin run the same per-block
+    # elimination) has 9x9 blocks of condition ~5e11, where any two
+    # eliminations part by ~1e-8: K1 is held between its own reading
+    # (1.6e-8) and the dense LU's distance from the twin (3.8e-8), and to a
+    # stable solve's backward error.  The last (dynamics on) is held near
+    # its reading (1.1e-11; Thomas 2.5e-11 from the twin).
+    Dr, Ur, br = (torch.as_tensor(a, device=dev)
+                  for a in _problem(np.random.default_rng(13), B4, n_pad4))
+    xr, xpr = solve(Dr, Ur, br), plain(Dr, Ur, br)
+    k1_err4 = float((xr - xpr).abs().max() / xpr.abs().max())
+    print(f"K1 N={n_pad4} B={B4} f64 (config 4, batched U): rel err vs plain "
+          f"{k1_err4:.3e} on random scaled blocks")
+    k1_run4 = {}
+    for tag, (D4, U4, b4) in (("first", k1_first), ("last", k1_last)):
+        x4, xp4 = solve(D4, U4, b4), plain(D4, U4, b4)
+        xt4 = ba.block_tridiag_solve(D4, U4, b4)
+        A4 = _dense(D4, U4)
+        xd4 = torch.linalg.solve(A4, b4.reshape(B4, -1, 1)).reshape(b4.shape)
+        del A4
+        d = {name: float((x - xp4).abs().max() / xp4.abs().max())
+             for name, x in (("K1", x4), ("Thomas", xt4), ("dense LU", xd4))}
+        bw = {name: _backward(D4, U4, b4, x)
+              for name, x in (("K1", x4), ("plain", xp4), ("Thomas", xt4),
+                              ("dense LU", xd4))}
+        k1_run4[tag] = (d["K1"], bw["K1"])
+        print(f"K1 N={n_pad4} B={B4} f64 (config 4, the run's {tag} system, "
+              f"max |U| {float(U4.abs().max()):.3e}): rel err vs plain "
+              + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              + "; backward error " + ", ".join(f"{k} {v:.2e}"
+                                                for k, v in bw.items()))
+    _check(k1_err4 <= 1e-9 and k1_run4["first"][0] <= 3e-8
+           and k1_run4["first"][1] <= 1e-14 and k1_run4["last"][0] <= 3e-11,
+           ("K1 at config 4", k1_err4, k1_run4))
+    D4, U4, b4 = k1_last
+    k1_ms4, k1_plain_ms4, r4 = _alternate(lambda: plain(D4, U4, b4),
+                                          lambda: solve(D4, U4, b4))
+    n_dev4, dev_us4, _ = _per_call(solve, (D4, U4, b4))
+    k1_bound4 = _bound_ms(_pcr_flops(B4, n_pad4), PEAK_F64,
+                          D4.element_size() * (D4.numel() + U4.numel()
+                                               + 2 * b4.numel()))
+    A4, rhs4 = _dense(D4, U4), b4.reshape(B4, -1, 1)
+    k1_lib_ms4 = _time_ms(lambda: torch.linalg.solve(A4, rhs4), reps=2)
+    del A4
+    print(f"K1 time N={n_pad4} B={B4} f64 (config 4, batched U, the run's "
+          f"last system): kernel {k1_ms4:.4f} ms ({r4[1]:.4f}, "
+          f"{r4[2]:.4f}), plain {k1_plain_ms4:.4f} ms ({r4[0]:.4f}, "
+          f"{r4[3]:.4f}), dense torch.linalg.solve {k1_lib_ms4:.4f} ms, bound "
+          f"{k1_bound4[0]:.4f} ms ({k1_bound4[1]}; "
+          f"{_pcr_flops(B4, n_pad4) / 1e6:.1f} Mflop), {n_dev4} device "
+          f"kernels per call (CUDA graph), {_us(dev_us4)} µs of device time "
+          f"a call (torch.profiler); rows {B4 * n_pad4} against "
+          f"{tridiag_pcr.resident_warps(torch.float64)} resident warps  "
+          f"[{smi}]")
+    _check(n_dev4 == 1, ("K1 device kernels at config 4", n_dev4))
+    # what a per-candidate copy of per-orbit U would cost with K=9 batched
+    # λ candidates (the port needs none: the Jacobi-scaled U is already one
+    # per candidate)
+    u_copy_ms = _time_ms(lambda: U4.expand(9, *U4.shape).reshape(
+        9 * B4, *U4.shape[1:]).contiguous())
+    print(f"config 4: per-orbit U copied for K=9 candidates "
+          f"({9 * U4.numel() * 8 / 1e6:.1f} MB): {u_copy_ms:.4f} ms  [{smi}]")
+    phase_done(13)
+
+    # 14. the evaluation: the mode-b orbit from JAX's draws, then the
+    # port's own two orbits
+    ev = np.load(EVAL_FIXTURE)
+    seed_b = int(ev["seed"])
+    _, nw14 = n_windows(*pipeline.stream_inputs(seq_b), seed_b)
+    solve.launches = 0
+    t0 = time.time()
+    res14 = pipeline.run_streaming(seq_b, seed=seed_b, cfg=cfg, device=dev)
+    wall14 = time.time() - t0
+    k1_14 = solve.launches
+    t5_14 = ate.time_to_threshold(res14.errors, res14.times, 5.0)
+    final14 = float(res14.errors[-1])
+    t0 = time.time()
+    cb14 = crlb.terminal_crlb_km(seq_b.orbit_pos_eci_km, seq_b.det_rows,
+                                 device=dev)
+    wall_cb = time.time() - t0
+    d_cb = max(abs(cb14[k] - float(ev[k])) / abs(float(ev[k]))
+               for k in ("crlb_final_km", "crlb_last_knot_km",
+                         "crlb_att_final_km"))
+    print(f"eval orbit (mode b, seed {seed_b}): {nw14} windows (JAX "
+          f"{int(ev['num_windows'])}), time_to_5km_s {t5_14} (JAX "
+          f"{float(ev['time_to_5km_s'])}), final_error_km {final14:.6f} (JAX "
+          f"{float(ev['final_error_km']):.6f}), recovery_trips "
+          f"{res14.recovery_trips}; stream {wall14:.2f} s, K1 launches "
+          f"{k1_14}; crlb_final_km {cb14['crlb_final_km']:.6f}, "
+          f"crlb_att_final_km {cb14['crlb_att_final_km']:.6f} (max rel err "
+          f"vs JAX {d_cb:.3e}) in {wall_cb:.2f} s  [{smi}]")
+    _check(np.isfinite(res14.errors).all(), "eval orbit finite")
+    _check(nw14 == int(ev["num_windows"])
+           and t5_14 == float(ev["time_to_5km_s"])
+           and abs(final14 - float(ev["final_error_km"])) <= 0.01,
+           ("eval orbit", nw14, t5_14, final14))
+    _check(d_cb <= 1e-6 and cb14["n_obs"] == int(ev["n_obs"]),
+           ("eval orbit CRLB", d_cb))
+    # run_batch_eval's streams recorded as it makes them, for the rows
+    solve.launches = k3.launches = 0
+    streamed = []
+    run_streaming = pipeline.run_streaming
+
+    def _recording_stream(seq, seed=0, **kw):
+        res = run_streaming(seq, seed=seed, **kw)
+        streamed.append((seq, res, seed))
+        return res
+
+    pipeline.run_streaming = _recording_stream
+    t0 = time.time()
+    try:
+        summary14 = pipeline.run_batch_eval([0, 1], DURATION_S, cfg=cfg,
+                                            device=dev)
+    finally:
+        pipeline.run_streaming = run_streaming
+    wall_ev = time.time() - t0
+    k1_ev, k3_ev = solve.launches, k3.launches
+    rows14 = [pipeline.eval_row(sq, r, s, device=dev)
+              for sq, r, s in streamed]
+    print(f"run_batch_eval([0, 1], {DURATION_S}): {wall_ev:.2f} s, K1 "
+          f"launches {k1_ev}, K3 launches {k3_ev}; summary "
+          + json.dumps(summary14) + f"  [{smi}]")
+    for row in rows14:
+        print("  eval row " + json.dumps(row))
+    _check(np.isfinite(summary14["median_final_error_km"]),
+           ("eval summary", summary14))
+    _check(k3_ev == 2 and k1_ev > 0, ("eval launches", k3_ev, k1_ev))
+    phase_done(14)
+
     print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
     k3_ms, k3_plain_ms, k3_bound, k3_dev = k3_times[("regions", "float64")]
     print(json.dumps({"kernels": [
@@ -912,7 +1251,17 @@ def main() -> int:
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": k1_lib_ms,
          "design": "one cooperative launch, a grid barrier per PCR level",
-         "device_kernels_per_call": k1_rows[(448, "float64")][3]},
+         "device_kernels_per_call": k1_rows[(448, "float64")][3],
+         "launches_by_path": {"stream": k1_launches, "own_arc": k1_main,
+                              "constellation": k1_launches4,
+                              "eval_orbit": k1_14, "batch_eval": k1_ev},
+         "constellation_shape": {
+             "B": B4, "N": n_pad4, "ms": k1_ms4, "plain_ms": k1_plain_ms4,
+             "bound_ms": k1_bound4[0], "bound_by": k1_bound4[1],
+             "library_ms": k1_lib_ms4, "max_rel_err": k1_err4,
+             "max_rel_err_run_first": k1_run4["first"][0],
+             "backward_err_run_first": k1_run4["first"][1],
+             "max_rel_err_run_last": k1_run4["last"][0]}},
         {"name": "visible_count", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain_ms,
@@ -920,7 +1269,9 @@ def main() -> int:
          "library_ms": None,
          "design": "tile boxes, then a frame per lane over the tiles the "
                    "boxes leave, staged in shared memory",
-         "device_kernels_per_call": k3_dev},
+         "device_kernels_per_call": k3_dev,
+         "launches_by_path": {"own_arc": k3_launches, "constellation": k3_4,
+                              "batch_eval": k3_ev}},
         {"name": "normal_eq", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": k2_launches,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,

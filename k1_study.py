@@ -22,7 +22,9 @@ answers are wrong.
 Against DIR, a checkout of another commit (e.g. the parent, unpacked with
 `git archive` into build/archive/parent, which git ignores): each checkout
 runs in a process of its own, in the order DIR, this, this, DIR.  Each
-prints K1's times as chip_smoke.py phase 3 does, then streams the
+prints K1's times as chip_smoke.py phase 3 does and its wrapper's host
+time a call (1000 calls enqueued back to back at B=1, N=5, where the
+device is faster than the host, and at B=9, N=64), then streams the
 committed fixture (tests/data/torch_stream_seed1.npz) through its own
 run_streaming on cuda in f64, once to warm up and twice timed (host
 wall), with K1's launches and the result.
@@ -123,10 +125,18 @@ def ablate() -> None:
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
     full = _build._loaded.get("tridiag_pcr")
+
+    def rebind():
+        # the wrapper binds its entry and sizes its scratch once: forget
+        # both, so that the next call takes the swapped build's
+        tridiag_pcr._SOLVE._fn = None
+        tridiag_pcr._work_elems.clear()
+
     try:
         for name, lib in libs.items():
             # the wrapper launches this build
             _build._loaded["tridiag_pcr"] = lib
+            rebind()
             regs = [ln.strip() for ln in _build.build_logs.get(
                 f"tridiag_pcr_{name}", "").splitlines() if "registers" in ln]
             print(f"== K1 build {name}: resident warps "
@@ -140,6 +150,22 @@ def ablate() -> None:
             _build._loaded.pop("tridiag_pcr", None)
         else:
             _build._loaded["tridiag_pcr"] = full
+        rebind()
+
+
+def _host_us(fn) -> float:
+    """Host µs a call of fn while HOST_CALLS calls are enqueued back to
+    back (where the device is faster than the host, the host's time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    dt = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    return dt
 
 
 def run_checkout(root: str) -> None:
@@ -159,6 +185,15 @@ def run_checkout(root: str) -> None:
     solve = tridiag_pcr.block_tridiag_solve_pcr
     print(f"== checkout {root}: K1 of {Path(tridiag_pcr.__file__).parent}")
     cs._k1_times(solve, tridiag_pcr.block_tridiag_solve_pcr_plain, dev, smi)
+    rng = np.random.default_rng(5)
+    for Bn, N in ((1, 5), (9, 64)):
+        D, U, b = (torch.as_tensor(a, device=dev)
+                   for a in cs._problem(rng, Bn, N))
+        _, dev_us, _ = cs._per_call(solve, (D, U, b))
+        print(f"K1 host µs a call B={Bn} N={N} f64: "
+              f"{_host_us(lambda: solve(D, U, b)):.1f} ({HOST_CALLS} calls "
+              f"enqueued back to back), {cs._us(dev_us)} µs of device time "
+              f"a call  [{smi}]", flush=True)
     fx = np.load(Path(root) / "tests" / "data" / "torch_stream_seed1.npz")
     seed = int(fx["seed"])
     cfg = window.StreamingConfig(dtype="float64")
@@ -312,15 +347,7 @@ def k2_where(cs, args, smi) -> None:
     buf = J.new_empty(N * 90)
     ptr = buf.data_ptr()
 
-    def host_us(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(HOST_CALLS):
-            fn()
-        dt = (time.perf_counter() - t0) / HOST_CALLS * 1e6
-        torch.cuda.synchronize()
-        return dt
+    host_us = _host_us
 
     def launch(n):
         return lambda: entry(dev, J.data_ptr(), r.data_ptr(), w.data_ptr(),

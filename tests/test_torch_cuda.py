@@ -8,12 +8,18 @@ K1 against its plain PyTorch twin on the same tensors: relative 1e-9 in
 f64, 1e-4 in f32 (pivot-free elimination on Jacobi-scaled blocks; f32
 roundoff over ~9 levels), from one block row per warp up to N=4097 (more
 rows than resident warps), with U batched or shared; one K1 call captured
-in a CUDA graph and replayed on new inputs equals the eager call.  One BA
-iteration on the card (kernel path)
-against the CPU (plain path): states relative 1e-9 (the two differ in
-summation order, and index_add_ sums with atomics on the card); the trial
-residual mean 1e-8, since it weighs differences of ~7000 km positions by
-sqrt(Σ) (tests/test_torch_ba.py).
+in a CUDA graph and replayed on new inputs equals the eager call; K1 at
+config 4's shape (B=8 orbits of per-orbit U, N=736 and 768: grid-stride).
+One BA iteration, and a 3-orbit solve_window_batch with dynamics
+iterations (on a synthetic batch, and on the constellation's batch of
+three simulated 600 s arcs), on the card (kernel path) against the CPU
+(plain path): states relative 1e-9 (the two differ in summation order,
+and index_add_ sums with atomics on the card); the trial residual mean
+1e-8, since it weighs differences of ~7000 km positions by sqrt(Σ)
+(tests/test_torch_ba.py).  The two batch cases are first held, on the
+CPU, to move by < 1e-10 under a 1e-15 perturbation of their initial
+states, so that the 1e-9 measures the port and not the problem: the
+only tests here that run without a card.
 
 K3 against its plain twin at the simulator's full size (F=10801 frames,
 L=7920 landmarks) in f64 and f32, on a globally uniform DB, on the
@@ -31,6 +37,8 @@ with f32=True or f32 inputs (f32 sums of 8 rows).  One arc-sharded LM step
 on the card (K2, Thomas and the SPIKE reduction) against the CPU: states
 relative 1e-9, as the single-chip step above.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -124,6 +132,22 @@ def test_kernel_matches_plain(B, N, dtype, tol, shared_u):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [736, 768])
+def test_kernel_at_constellation_shape(N):
+    # config 4: B = 8 orbits of per-orbit U, past the resident warps
+    dev = _cuda()
+    D, U, b = (torch.as_tensor(a, device=dev)
+               for a in _problem(np.random.default_rng(N + 8), 8, N))
+    assert 8 * N > tridiag_pcr.resident_warps(torch.float64, dev)
+    before = tridiag_pcr.block_tridiag_solve_pcr.launches
+    got = tridiag_pcr.block_tridiag_solve_pcr(D, U, b)
+    torch.cuda.synchronize()
+    assert tridiag_pcr.block_tridiag_solve_pcr.launches == before + 1
+    assert _rel(got, tridiag_pcr.block_tridiag_solve_pcr_plain(D, U, b)) \
+        < 1e-9
+
+
+@pytest.mark.cuda
 def test_kernel_counts_one_launch_per_call():
     dev = _cuda()
     D, U, b = (torch.as_tensor(a, device=dev)
@@ -211,6 +235,117 @@ def test_ba_iteration_on_card_matches_cpu():
     assert float(cpu.lamda_init) == float(gpu.lamda_init)
     assert _rel(gpu.states.cpu(), cpu.states) < 1e-9
     assert _rel(gpu.mean_residual.cpu(), cpu.mean_residual) < 1e-8
+
+
+def _projected_batch(d):
+    """3 orbits of N=64 on one padded shape: nadir attitudes, landmarks
+    below the track, pixels projected from the true states plus 0.5 px
+    noise, the states 2 km off; the knots are random, so the dynamics
+    factor fights the vision one."""
+    from vinsat_tpu_torch.core import frames
+    from vinsat_tpu_torch.estimation import factors
+
+    rng = np.random.default_rng(6)
+    N, M = 64, 448
+    intr = np.array([3547.85, 3547.85, 2304.0, 1296.0])
+    fields, states = [], []
+    for _ in range(3):
+        pos = rng.normal(size=(N, 3)) * 30 + np.array([6900.0, 0, 0])
+        q = frames.nadir_quaternion(torch.as_tensor(pos)).numpy()
+        vel = rng.normal(size=(N, 3)) * 0.1 + np.array([0, 7.5, 0])
+        gt = np.concatenate([pos, q, vel], axis=1)
+        ii = np.sort(rng.integers(0, N, M))
+        lm = pos[ii] * (6378.0 / 6900.0) + rng.normal(size=(M, 3)) * 30
+        uv = factors.project_landmarks(
+            torch.as_tensor(gt), torch.as_tensor(lm), torch.as_tensor(ii),
+            torch.as_tensor(intr)).numpy() + rng.normal(size=(M, 2)) * 0.5
+        st = gt.copy()
+        st[:, :3] += rng.normal(size=(N, 3)) * 2.0
+        states.append(st)
+        gaps = np.full(N, 120.0)
+        gaps[-1] = 0.0
+        cum = np.zeros((N, 4))
+        cum[:, 3] = 1.0
+        fields.append(dict(
+            gaps=gaps, cum_rot=cum, landmarks_xyz=lm, landmarks_uv=uv,
+            conf=rng.uniform(0.8, 1.0, M), ii=ii, obs_valid=np.ones(M),
+            knot_valid=np.ones(N), pair_valid=np.ones(N - 1),
+            intrinsics=intr))
+    return (torch.as_tensor(np.stack(states), device=d),
+            ba.stack_problems([ba.problem_from_numpy(f, d) for f in fields]),
+            torch.full((3,), 1e-4, dtype=torch.float64, device=d),
+            ba.SolverParams(num_hops=2))
+
+
+@functools.lru_cache(maxsize=1)
+def _simulated_seqs():
+    from vinsat_tpu_torch import pipeline
+
+    return [pipeline.simulate_sequence(s, 600, along_track=True,
+                                       frame_stride=5, device="cpu")
+            for s in range(3)]
+
+
+def _simulated_batch(d):
+    """The constellation's own batch of port seeds 0-2, 600 s along track
+    (simulated on the CPU): states that follow the dynamics, 50 km of
+    initial noise, N=128 knots (K1's path on the card)."""
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.estimation import window
+
+    b = pipeline._prepare_constellation(range(3), _simulated_seqs(), 600,
+                                        window.StreamingConfig(), None, None,
+                                        d)
+    return b.states0, b.prob, b.lamda, b.params
+
+
+_BATCH_CASES = [
+    # 2 vision-only iterations, then 2 with dynamics
+    (_projected_batch, 2, 4),
+    # dynamics from the first iteration: the vision-only iterations of a
+    # noised arc move its knots hundreds of km along the lines of sight,
+    # and the first dynamics iteration after them parts by ~1e-8 between
+    # any two roundings
+    (_simulated_batch, 0, 3)]
+
+
+@pytest.mark.parametrize("make,init_iters,num_iters", _BATCH_CASES)
+def test_batch_cases_are_well_conditioned(make, init_iters, num_iters):
+    # on the CPU: the card test below holds the card to the CPU at 1e-9,
+    # which measures the port only where the problem itself does not
+    # amplify roundoff; a 1e-15 relative perturbation of the initial
+    # states must move the result by far less
+    from vinsat_tpu_torch.estimation import window
+
+    states0, prob, lamda, params = make("cpu")
+    noise = torch.as_tensor(
+        np.random.default_rng(1).standard_normal(states0.shape))
+    a, b = (window.solve_window_batch(s0, prob, lamda, init_iters,
+                                      num_iters, params,
+                                      sched_offset=-init_iters)
+            for s0 in (states0, states0 * (1 + 1e-15 * noise)))
+    assert torch.equal(a[1], b[1])
+    assert _rel(b[0], a[0]) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,init_iters,num_iters", _BATCH_CASES)
+def test_solve_window_batch_on_card_matches_cpu(make, init_iters, num_iters):
+    # the sequential λ search over 3 orbits: K1 at B=3 on the card, its
+    # twin on the CPU
+    from vinsat_tpu_torch.estimation import window
+
+    dev = _cuda()
+    out = {}
+    for d in ("cpu", dev):
+        states0, prob, lamda, params = make(d)
+        out[str(d)] = window.solve_window_batch(
+            states0, prob, lamda, init_iters, num_iters, params,
+            sched_offset=-init_iters)
+    cpu, gpu = out["cpu"], out[str(dev)]
+    assert torch.equal(cpu[1], gpu[1].cpu())
+    assert _rel(gpu[0].cpu(), cpu[0]) < 1e-9
+    assert _rel(gpu[3].cpu(), cpu[3]) < 1e-8
 
 
 def _k3_case(rng, F, L):

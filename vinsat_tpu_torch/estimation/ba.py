@@ -17,6 +17,14 @@ TPU compiler pathology and are not ported.
 
 Schedules, masks and the λ acceptance rule are the JAX package's; the
 schedule index is a host int, so α and Σ are Python floats here.
+
+Orbit axis: `ba_iteration` also takes B orbits at once (states (B, N, 10),
+every BAProblem field but `intrinsics` with a leading B), which is what
+the JAX package's `vmap` over `ba_iteration` computes (the constellation
+solve, window.solve_window_batch): one robust scale per orbit, per-orbit
+sums, and a λ search whose orbits each stop on their own while the batch
+runs on (`_lambda_search`).  The unbatched call is the same arithmetic
+without that axis.
 """
 from __future__ import annotations
 
@@ -33,7 +41,9 @@ from vinsat_tpu_torch.estimation import factors
 class BAProblem(NamedTuple):
     """Static-shape (padded) window problem; field names as in the JAX
     BAProblem.  Padded observations have obs_valid=0 and ii=0, padded knots
-    knot_valid=0 and gaps=0; pair_valid masks dynamics pairs."""
+    knot_valid=0 and gaps=0; pair_valid masks dynamics pairs.  A batch of
+    orbits (`stack_problems`) carries a leading B on every field but
+    intrinsics."""
 
     gaps: torch.Tensor  # (N,) seconds to next knot
     cum_rot: torch.Tensor  # (N, 4)
@@ -45,6 +55,16 @@ class BAProblem(NamedTuple):
     knot_valid: torch.Tensor  # (N,) 0/1
     pair_valid: torch.Tensor  # (N-1,) 0/1
     intrinsics: torch.Tensor  # (4,)
+
+
+def stack_problems(probs) -> BAProblem:
+    """B problems of one padded shape as one batch: every field stacked on
+    a leading orbit axis except `intrinsics`, which the orbits share (the
+    first problem's)."""
+    return BAProblem(**{
+        name: (probs[0].intrinsics if name == "intrinsics" else
+               torch.stack([getattr(p, name) for p in probs]))
+        for name in BAProblem._fields})
 
 
 def problem_from_numpy(fields: Mapping[str, np.ndarray], device,
@@ -82,25 +102,30 @@ class SolverParams(NamedTuple):
 
 
 def _masked_median(x, valid):
-    """Median of |x| over valid entries."""
-    flat = x.abs().reshape(-1)
-    vmask = valid[..., None].expand(x.shape).reshape(-1) > 0
+    """Median of |x| over valid entries: x (..., M, k), valid (..., M) ->
+    one median per leading index (per orbit), each from a sort of its own
+    M·k values."""
+    flat = x.abs().flatten(-2)
+    vmask = valid[..., None].expand(x.shape).flatten(-2) > 0
     big = torch.where(vmask, flat, torch.full_like(flat, math.inf))
-    order = torch.sort(big).values
-    n = vmask.sum()
-    last = flat.shape[0] - 1
+    order = torch.sort(big, dim=-1).values
+    n = vmask.sum(-1)
+    last = flat.shape[-1] - 1
     lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), 0, last)
     hi = torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0, last)
     # gather with tensor indices: indexing with a 0-d tensor would sync
-    return 0.5 * (order.gather(0, lo.view(1)) + order.gather(0, hi.view(1)))[0]
+    return 0.5 * (order.gather(-1, lo[..., None])
+                  + order.gather(-1, hi[..., None]))[..., 0]
 
 
 def robust_weights(r_obs, conf, obs_valid, sched_iter: int):
     """Adaptive Barron-style robust weights: α anneals 2 -> 1 over the
-    first iterations; weights normalized by their max, scaled by conf."""
+    first iterations; weights normalized by their max, scaled by conf.
+    r_obs (..., M, 2): the scale and the max are per leading index."""
     it = float(sched_iter)
     alpha = min(max(1.0 - (2.0 * (it / 5.0) - 1.0), 1.0), 2.0)
-    c = torch.clamp(_masked_median(r_obs, obs_valid), min=1e-12)
+    c = torch.clamp(_masked_median(r_obs, obs_valid), min=1e-12)[..., None,
+                                                                  None]
     if alpha >= 2.0 - 1e-9:
         w_elem = torch.ones_like(r_obs) / (c * c)
     else:
@@ -108,7 +133,7 @@ def robust_weights(r_obs, conf, obs_valid, sched_iter: int):
         denom = max(abs(alpha - 2.0), 1e-12)
         w_elem = ((x2 / denom + 1.0) ** (alpha / 2.0 - 1.0)) / (c * c)
     w = w_elem.mean(-1) * obs_valid
-    w = w / torch.clamp(w.max(), min=1e-30)
+    w = w / torch.clamp(w.amax(-1, keepdim=True), min=1e-30)
     return w * conf * obs_valid
 
 
@@ -210,7 +235,9 @@ PCR_MIN_N = 64
 def jacobi_scaled_tridiag_solve(D, U, b, variant: str = "auto"):
     """Block-tridiagonal solve with symmetric Jacobi preconditioning
     s = diag(D)^{-1/2}: solve (SHS)(S⁻¹x) = Sb.  Leading batch dims are
-    allowed (the batched λ candidates); U may lack them."""
+    allowed (λ candidates, orbits); U may lack them.  K1 takes one batch
+    axis, so several are flattened into it: K candidates of B orbits go to
+    the kernel as K·B systems, each with its own (scaled) U."""
     diag = torch.diagonal(D, dim1=-2, dim2=-1)
     s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-30))
     Ds = D * s[..., :, :, None] * s[..., :, None, :]
@@ -222,7 +249,10 @@ def jacobi_scaled_tridiag_solve(D, U, b, variant: str = "auto"):
         from vinsat_tpu_torch.kernels.tridiag_pcr import (
             block_tridiag_solve_pcr)
 
-        xs = block_tridiag_solve_pcr(Ds, Us, bs)
+        lead, N = Ds.shape[:-3], Ds.shape[-3]
+        xs = block_tridiag_solve_pcr(
+            Ds.reshape(-1, N, 9, 9), Us.reshape(-1, N - 1, 9, 9),
+            bs.reshape(-1, N, 9)).reshape(*lead, N, 9)
     elif variant == "thomas":
         xs = block_tridiag_solve(Ds, Us, bs)
     else:
@@ -231,10 +261,24 @@ def jacobi_scaled_tridiag_solve(D, U, b, variant: str = "auto"):
 
 
 class BAStep(NamedTuple):
+    """One iteration's output; with an orbit axis each field leads with B."""
+
     states: torch.Tensor  # (N, 10) updated states
     lamda_init: torch.Tensor  # scalar, carried to the next iteration
     last_hessian: torch.Tensor  # (9, 9) trailing diagonal block of JTwJ
     mean_residual: torch.Tensor  # diagnostic
+
+
+def _along(mask, t):
+    """mask (...) shaped to broadcast against t (..., *rest)."""
+    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+
+
+def _take(t, j):
+    """t[j[b], b, ...] for each leading index b of j: the first axis of t
+    indexed per batch entry (t (K, *j.shape, ...))."""
+    idx = _along(j[None], t).expand((1,) + t.shape[1:])
+    return t.gather(0, idx)[0]
 
 
 def _lambda_search(solve_with, trial_residual, init_residual, lamda0,
@@ -242,51 +286,80 @@ def _lambda_search(solve_with, trial_residual, init_residual, lamda0,
     """The LM damping search: try λ, accept iff the trial residual drops
     below the linearization-point residual, else λ ×= growth while
     λ <= λ_max; the first trial always runs.  Returns (states_new,
-    lamda_used, lamda_exit, trial_res).
+    lamda_used, lamda_exit, trial_res).  lamda0 is a scalar, or (B,) for B
+    orbits searched at once.
 
     batched_lambda == 0: the sequential loop (one host sync per trial).
+    With orbits it is the JAX package's vmapped while_loop: trials run
+    while any orbit is still searching, and an orbit that has stopped
+    keeps its carry, so each orbit ends where its own search would.
     batched_lambda == K: K candidates λ0·gᵏ solved and evaluated at once;
-    the first accepted (else the last <= λ_max) wins — the same selection.
+    the first accepted (else the last <= λ_max) wins — the same selection,
+    made per orbit.
     """
     K = params.batched_lambda
     if K <= 0:
         def body(lamda):
             states_new = solve_with(lamda)
             trial = trial_residual(states_new)
-            return (lamda * params.lambda_growth, bool(trial < init_residual),
+            return (lamda * params.lambda_growth, trial < init_residual,
                     states_new, lamda, trial)
 
-        lamda_f, done, states_new, lamda_used, trial_res = body(lamda0)
-        while not done and bool(lamda_f <= params.lambda_max):
-            lamda_f, done, states_new, lamda_used, trial_res = body(lamda_f)
+        def searching(carry):
+            return ~carry[1] & (carry[0] <= params.lambda_max)
+
+        carry = body(lamda0)
+        active = searching(carry)
+        while bool(active.any()):
+            carry = tuple(torch.where(_along(active, new), new, old)
+                          for new, old in zip(body(carry[0]), carry))
+            active = searching(carry)
+        lamda_f, _, states_new, lamda_used, trial_res = carry
         return states_new, lamda_used, lamda_f, trial_res
 
     # λ0·gᵏ by repeated products, bit for bit the sequential loop's values
     lamdas = torch.cumprod(torch.cat(
-        [lamda0.reshape(1), lamda0.new_full((K - 1,), params.lambda_growth)]),
-        dim=0)
-    states_c = solve_with(lamdas)  # (K, N, 10)
-    trials = trial_residual(states_c)  # (K,)
-    ks = torch.arange(K, device=lamdas.device)
+        [lamda0[None],
+         lamda0.new_full((K - 1,) + lamda0.shape, params.lambda_growth)]),
+        dim=0)  # (K, *orbits)
+    states_c = solve_with(lamdas)  # (K, *orbits, N, 10)
+    trials = trial_residual(states_c)  # (K, *orbits)
+    ks = _along(torch.arange(K, device=lamdas.device), lamdas)
     valid = (ks == 0) | (lamdas <= params.lambda_max)
     accepted = valid & (trials < init_residual)
-    first_acc = torch.argmax(accepted.to(lamdas.dtype))
-    last_valid = K - 1 - torch.argmax(valid.flip(0).to(lamdas.dtype))
-    j = torch.where(accepted.any(), first_acc, last_valid).view(1)
-    lam_j = lamdas.index_select(0, j)[0]
-    return (states_c.index_select(0, j)[0], lam_j,
-            lam_j * params.lambda_growth, trials.index_select(0, j)[0])
+    first_acc = torch.argmax(accepted.to(lamdas.dtype), dim=0)
+    last_valid = K - 1 - torch.argmax(valid.flip(0).to(lamdas.dtype), dim=0)
+    j = torch.where(accepted.any(0), first_acc, last_valid)
+    lam_j = _take(lamdas, j)
+    return (_take(states_c, j), lam_j, lam_j * params.lambda_growth,
+            _take(trials, j))
 
 
 def _residual_means(r_obs_w, r_pred_flat, obs_valid, pair_valid, sigma: float,
                     pred_dim: float):
     """mean |[r_obs ; r_pred*sqrt(Sigma)]| with padding-aware counts; leading
-    batch dims of the residuals are kept."""
-    s_obs = (r_obs_w.abs() * obs_valid[:, None]).sum((-2, -1))
-    n_obs = 2.0 * obs_valid.sum()
+    batch dims of the residuals (λ candidates, then orbits) are kept, and
+    each orbit counts its own valid entries (obs_valid (..., M),
+    pair_valid (..., N-1))."""
+    s_obs = (r_obs_w.abs() * obs_valid[..., None]).sum((-2, -1))
+    n_obs = 2.0 * obs_valid.sum(-1)
     s_pred = (r_pred_flat.abs() * math.sqrt(sigma)).sum((-2, -1))
-    n_pred = pred_dim * pair_valid.sum()
+    n_pred = pred_dim * pair_valid.sum(-1)
     return (s_obs + s_pred) / torch.clamp(n_obs + n_pred, min=1.0)
+
+
+def _segment_sum(vals, ii, N: int):
+    """Per-knot sums of per-observation values (the JAX segment_sum):
+    vals (M, ...) with ii (M,) -> (N, ...); with an orbit axis, vals
+    (B, M, ...) with ii (B, M) -> (B, N, ...), each orbit into its own
+    rows (one index_add_ over flattened offsets ii + b·N)."""
+    if ii.dim() == 1:
+        return vals.new_zeros((N,) + vals.shape[1:]).index_add_(0, ii, vals)
+    Bn, tail = ii.shape[0], vals.shape[2:]
+    rows = ii + N * torch.arange(Bn, device=ii.device)[:, None]
+    out = vals.new_zeros((Bn * N,) + tail).index_add_(
+        0, rows.reshape(-1), vals.reshape((-1,) + tail))
+    return out.view((Bn, N) + tail)
 
 
 def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
@@ -294,9 +367,11 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
                  initialize: bool = False) -> BAStep:
     """One robust-LM iteration.  sched_iter (host int, may be negative)
     feeds the α/Σ schedules; `initialize` zeroes the dynamics factor (the
-    vision-only warm start)."""
+    vision-only warm start).  states (N, 10), or (B, N, 10) with a batched
+    `prob` (`stack_problems`) and lamda_init a float or (B,): B orbits in
+    one iteration, the schedule and `initialize` shared."""
     dtype, dev = states.dtype, states.device
-    N = states.shape[0]
+    orbits, N = states.shape[:-2], states.shape[-2]
 
     reproj = factors.reprojection_factor(
         states, prob.landmarks_xyz, prob.ii, prob.intrinsics)
@@ -305,7 +380,7 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
         valid_pair=prob.pair_valid, num_hops=params.num_hops,
         max_substep=params.max_substep, with_jacobian=True)
 
-    r_obs = (prob.landmarks_uv - reproj.uv) * prob.obs_valid[:, None]
+    r_obs = (prob.landmarks_uv - reproj.uv) * prob.obs_valid[..., None]
     w = robust_weights(r_obs, prob.conf, prob.obs_valid, sched_iter)
 
     sigma = min(params.sigma_scale * (float(sched_iter) + 1.0) ** 2,
@@ -320,32 +395,32 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
 
     # --- normal-equation blocks ------------------------------------------
     Jg = reproj.J  # (M, 2, 9)
-    JgW = Jg * w[:, None, None]
+    JgW = Jg * w[..., None, None]
     G_obs = JgW.transpose(-1, -2) @ Jg  # (M, 9, 9)
-    D = torch.zeros((N, 9, 9), dtype=dtype, device=dev).index_add_(
-        0, prob.ii, G_obs)
+    D = _segment_sum(G_obs, prob.ii, N)
     D = D + sigma * Hq_diag
     At, Bt = A.transpose(-1, -2), B.transpose(-1, -2)
-    D[:-1] += sigma * (At @ A)
-    D[1:] += sigma * (Bt @ B)
+    D[..., :-1, :, :] += sigma * (At @ A)
+    D[..., 1:, :, :] += sigma * (Bt @ B)
     U = sigma * (At @ B + Hq_off)
 
     # --- gradient ---------------------------------------------------------
-    JgT_robs = torch.zeros((N, 9), dtype=dtype, device=dev).index_add_(
-        0, prob.ii, (JgW.transpose(-1, -2) @ r_obs[..., None])[..., 0])
-    JfT_r = torch.zeros((N, 9), dtype=dtype, device=dev)
-    JfT_r[:-1] += (At @ res_pv[..., None])[..., 0]
-    JfT_r[1:] += (Bt @ res_pv[..., None])[..., 0]
+    JgT_robs = _segment_sum(
+        (JgW.transpose(-1, -2) @ r_obs[..., None])[..., 0], prob.ii, N)
+    JfT_r = torch.zeros(orbits + (N, 9), dtype=dtype, device=dev)
+    JfT_r[..., :-1, :] += (At @ res_pv[..., None])[..., 0]
+    JfT_r[..., 1:, :] += (Bt @ res_pv[..., None])[..., 0]
     JTr = JgT_robs - sigma * JfT_r - sigma * qgrad
 
     # --- initial residual (acceptance reference) --------------------------
     pred_dim = 6.0 if initialize else 7.0
     if initialize:
-        r_pred_for_mean = torch.zeros_like(res_pv[:, :1]).expand(-1, 7)
+        r_pred_for_mean = torch.zeros_like(res_pv[..., :1]).expand(
+            *res_pv.shape[:-1], 7)
     else:
-        r_pred_for_mean = torch.cat([res_pv, res_q[:, None]], dim=-1)
+        r_pred_for_mean = torch.cat([res_pv, res_q[..., None]], dim=-1)
     init_residual = _residual_means(
-        r_obs, r_pred_for_mean * prob.pair_valid[:, None], prob.obs_valid,
+        r_obs, r_pred_for_mean * prob.pair_valid[..., None], prob.obs_valid,
         prob.pair_valid, sigma, pred_dim)
 
     eye = torch.eye(9, dtype=dtype, device=dev)
@@ -353,8 +428,8 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
     def trial_residual(states_new):
         uv_new = factors.project_landmarks(
             states_new, prob.landmarks_xyz, prob.ii, prob.intrinsics)
-        r_obs1 = (prob.landmarks_uv - uv_new) * prob.obs_valid[:, None]
-        r_obs1 = r_obs1 * w[:, None]
+        r_obs1 = (prob.landmarks_uv - uv_new) * prob.obs_valid[..., None]
+        r_obs1 = r_obs1 * w[..., None]
         if initialize:
             r_pred1 = torch.zeros(states_new.shape[:-2] + (N - 1, 7),
                                   dtype=dtype, device=dev)
@@ -365,14 +440,14 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
                 num_hops=params.num_hops, max_substep=params.max_substep,
                 with_jacobian=False)
             r_pred1 = torch.cat([dyn1.res_pv, dyn1.res_q[..., None]],
-                                dim=-1) * prob.pair_valid[:, None]
+                                dim=-1) * prob.pair_valid[..., None]
         return _residual_means(r_obs1, r_pred1, prob.obs_valid,
                                prob.pair_valid, sigma, pred_dim)
 
     def retract(dpose):
-        position = states[:, :3] + dpose[..., 0:3]
-        rotation = quat.box_plus(states[:, 3:7], dpose[..., 3:6])
-        vels = states[:, 7:10] + dpose[..., 6:9]
+        position = states[..., :3] + dpose[..., 0:3]
+        rotation = quat.box_plus(states[..., 3:7], dpose[..., 3:6])
+        vels = states[..., 7:10] + dpose[..., 6:9]
         return torch.cat([position, rotation, vels], dim=-1)
 
     def solve_with(lamda):
@@ -383,13 +458,18 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
     if isinstance(lamda_init, torch.Tensor):
         lamda0 = lamda_init.to(dtype)
     else:
-        lamda0 = torch.full((), float(lamda_init), dtype=dtype, device=dev)
+        lamda0 = torch.full(orbits, float(lamda_init), dtype=dtype,
+                            device=dev)
     states_new, lamda_used, lamda_f, trial_res = _lambda_search(
         solve_with, trial_residual, init_residual, lamda0, params)
 
     lamda_init_new = torch.clamp(torch.clamp(lamda_f * 0.01, max=1e-1),
                                  min=1e-4)
     # trailing diagonal block of the last VALID knot
-    idx_last = torch.clamp(prob.knot_valid.sum().to(torch.int64) - 1, min=0)
-    last_hessian = D.index_select(0, idx_last.view(1))[0] + lamda_used * eye
+    idx_last = torch.clamp(prob.knot_valid.sum(-1).to(torch.int64) - 1,
+                           min=0)
+    last_hessian = (
+        D.gather(-3, idx_last[..., None, None, None].expand(
+            orbits + (1, 9, 9)))[..., 0, :, :]
+        + lamda_used[..., None, None] * eye)
     return BAStep(states_new, lamda_init_new, last_hessian, trial_res)

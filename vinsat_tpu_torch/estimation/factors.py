@@ -6,10 +6,13 @@ tangent: [dpos(3), dphi(3), dvel(3)].  Every Jacobian is analytic in the
 reference's Gq-lift convention (no 1/2 factor), exactly as in the JAX
 package.
 
-`project_landmarks` and `dynamics_factor` broadcast over leading batch
-dimensions of `states` (the port's batched λ search evaluates K candidate
-state sets at once, and the arc-sharded step runs every orbit and shard at
-once, where the JAX package vmaps and shard_maps).
+`project_landmarks`, `reprojection_factor` and `dynamics_factor` broadcast
+over leading batch dimensions of `states` (the port's batched λ search
+evaluates K candidate state sets at once, the constellation solve B orbits,
+and the arc-sharded step every orbit and shard, where the JAX package vmaps
+and shard_maps).  With an orbit axis each orbit's observations index its
+own knots: `ii` (B, M) against `states` (..., B, N, 10)
+(`gather_knots`).
 `lax.associative_scan` becomes `_inclusive_scan`, a log-depth
 Hillis–Steele scan.
 """
@@ -67,15 +70,27 @@ def _dGqT_g(g):
 
 
 class ReprojFactor(NamedTuple):
-    uv: torch.Tensor  # (M, 2) predicted pixels
-    J: torch.Tensor  # (M, 2, 9) tangent Jacobian (vel columns zero)
+    uv: torch.Tensor  # (..., M, 2) predicted pixels
+    J: torch.Tensor  # (..., M, 2, 9) tangent Jacobian (vel columns zero)
+
+
+def gather_knots(states, ii):
+    """The knot row of each observation: states[..., ii, :] for ii (M,);
+    for ii (B, M) against states (..., B, N, C) each orbit gathers its own
+    knots -> (..., B, M, C)."""
+    if ii.dim() == 1:
+        return states[..., ii, :]
+    idx = ii[..., None].expand(*states.shape[:-2], ii.shape[-1],
+                               states.shape[-1])
+    return torch.gather(states, -2, idx)
 
 
 def project_landmarks(states, landmarks_xyz, ii, intrinsics):
     """Predicted pixel coords of each observation.  states (..., N, 10);
     landmarks_xyz (M, 3); ii (M,) int64 obs->knot; intrinsics (4,) =
-    (fx, fy, cx, cy) as a tensor."""
-    st = states[..., ii, :]
+    (fx, fy, cx, cy) as a tensor.  With an orbit axis: states (..., B, N,
+    10), landmarks_xyz (B, M, 3), ii (B, M)."""
+    st = gather_knots(states, ii)
     p_cam = quat.rotate_inverse(st[..., 3:7], landmarks_xyz - st[..., :3])
     fx, fy, cx, cy = intrinsics.unbind(-1)
     d = 1.0 / torch.clamp(p_cam[..., 2], min=0.1)
@@ -99,9 +114,11 @@ def _skew(p):
 
 def reprojection_factor(states, landmarks_xyz, ii, intrinsics) -> ReprojFactor:
     """Pixel prediction + analytic (M, 2, 9) Jacobian in the Gq-lift
-    convention (d p_cam / d phi = 2 [p_cam]_x)."""
-    pos = states[ii, :3]
-    q = states[ii, 3:7]
+    convention (d p_cam / d phi = 2 [p_cam]_x).  Shapes as in
+    project_landmarks."""
+    st = gather_knots(states, ii)
+    pos = st[..., :3]
+    q = st[..., 3:7]
     p_cam = quat.rotate_inverse(q, landmarks_xyz - pos)
     fx, fy, cx, cy = intrinsics.unbind(-1)
     X, Y, Z = p_cam.unbind(-1)
@@ -252,11 +269,16 @@ def dynamics_factor(states, gaps, cum_rot, quat_coeff, vel_coeff,
 def cumulative_rotations(omega_seq, dt, knot_times):
     """Per-knot cumulative IMU rotation over each inter-knot gap: (N, 4)
     with c_t = prod_{k=t_i}^{t_{i+1}-1} exp(dt w_k), last entry identity.
-    Prefix products P(a, b) = R_a^* ⊗ R_b from one log-depth scan."""
-    rots = quat.exp(dt * omega_seq)  # (T, 4)
-    ident = torch.zeros_like(rots[:1])
-    ident[0, 3] = 1.0
-    prefix = _inclusive_scan(torch.cat([ident, rots], dim=0), quat.multiply)
-    Ra = prefix[knot_times]
-    Rb = prefix[torch.cat([knot_times[1:], knot_times[-1:]])]
+    Prefix products P(a, b) = R_a^* ⊗ R_b from one log-depth scan.
+    omega_seq (..., T, 3) and knot_times (..., N) may carry an orbit axis
+    (B orbits of one arc length, each with its own knots)."""
+    rots = quat.exp(dt * omega_seq)  # (..., T, 4)
+    ident = torch.zeros_like(rots[..., :1, :])
+    ident[..., 0, 3] = 1.0
+    prefix = _inclusive_scan(
+        torch.cat([ident, rots], dim=-2).movedim(-2, 0),
+        quat.multiply).movedim(0, -2)
+    nxt = torch.cat([knot_times[..., 1:], knot_times[..., -1:]], dim=-1)
+    Ra = gather_knots(prefix, knot_times)
+    Rb = gather_knots(prefix, nxt)
     return quat.normalize(quat.multiply(quat.conjugate(Ra), Rb))

@@ -9,6 +9,10 @@ the time-to-<5 km metric.  Eager PyTorch: the LM loop is a Python loop
 whose per-iteration work stays on the device (no host sync inside a
 window's solve when the λ search is batched).
 
+`solve_window_batch` is the constellation solve (BASELINE config 4): B
+padded windows in one batched LM loop, where the JAX package vmaps
+`_solve_window`.
+
 Ported: the synchronous growing-prefix path with the recovery ladder's
 damped retry.  The JAX package's fused async "fast" path (it hides TPU
 dispatch latency and is bit-identical to the synchronous path), its f64
@@ -50,13 +54,19 @@ def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
     (conv_patience < the extra budget) is not ported.
 
     step_i(i, states, lam) -> BAStep.  Returns (states, lamda,
-    last_hessian, mean_residual).
+    last_hessian, mean_residual).  states0 (B, N, 10) runs B orbits at once
+    (lamda_init a float or (B,)): λ and the best-iterate tracking are then
+    per orbit, as under the JAX package's vmap.
     """
     dtype, dev = states0.dtype, states0.device
+    orbits = states0.shape[:-2]
     states = states0
-    lam = torch.full((), float(lamda_init), dtype=dtype, device=dev)
-    last_h = torch.zeros((9, 9), dtype=dtype, device=dev)
-    res = torch.zeros((), dtype=dtype, device=dev)
+    if isinstance(lamda_init, torch.Tensor):
+        lam = lamda_init.to(dtype=dtype, device=dev).expand(orbits)
+    else:
+        lam = torch.full(orbits, float(lamda_init), dtype=dtype, device=dev)
+    last_h = torch.zeros(orbits + (9, 9), dtype=dtype, device=dev)
+    res = torch.zeros(orbits, dtype=dtype, device=dev)
 
     if params.max_iters <= num_iters:
         for i in range(num_iters):
@@ -67,15 +77,16 @@ def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
         raise NotImplementedError(
             "residual-gated early stop (conv_patience) is not ported")
     best_states, best_h = states0, last_h
-    best_res = torch.full((), math.inf, dtype=dtype, device=dev)
+    best_res = torch.full(orbits, math.inf, dtype=dtype, device=dev)
     for i in range(params.max_iters):
         states, lam, last_h, res = step_i(i, states, lam)
         if i == init_iters:
             best_states, best_h, best_res = states, last_h, res
         else:
             take = res < best_res
-            best_states = torch.where(take, states, best_states)
-            best_h = torch.where(take, last_h, best_h)
+            best_states = torch.where(ba._along(take, states), states,
+                                      best_states)
+            best_h = torch.where(ba._along(take, last_h), last_h, best_h)
             best_res = torch.where(take, res, best_res)
     return best_states, lam, best_h, best_res
 
@@ -92,6 +103,25 @@ def _solve_window(states0, prob: ba.BAProblem, lamda_init, init_iters: int,
 
     return _lm_loop(step_i, states0, lamda_init, init_iters, num_iters,
                     params)
+
+
+def solve_window_batch(states0_b, prob_b: ba.BAProblem, lamda_b, init_iters,
+                       num_iters: int,
+                       params: ba.SolverParams = ba.SolverParams(),
+                       sched_offset=0):
+    """The constellation solve (BASELINE config 4): B same-bucket windows
+    in one batched LM loop, each ba_iteration one program over all B
+    orbits (K1 solves their B systems in one launch), as the JAX
+    package's vmap of `_solve_window` does.
+
+    states0_b (B, N, 10); prob_b fields carry a leading B axis except
+    intrinsics (shared; `ba.stack_problems`); lamda_b (B,).  init_iters
+    and sched_offset are host ints (or 0-d arrays of one).  Returns
+    (states (B, N, 10), lamda (B,), last_hessian (B, 9, 9),
+    mean_residual (B,)).
+    """
+    return _solve_window(states0_b, prob_b, lamda_b, int(init_iters),
+                         num_iters, params, int(sched_offset))
 
 
 def _propagate_impl(state10, omega_seq, length: int):

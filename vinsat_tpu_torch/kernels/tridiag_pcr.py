@@ -12,7 +12,9 @@ levels and elimination order.
 runs the plain twin, a CUDA tensor launches the kernel (built from the
 source at first use) or raises, also when the card refuses the cooperative
 launch.  `block_tridiag_solve_pcr.launches` counts kernel launches (one per
-solve), so a run can show it went through the kernel.
+solve), so a run can show it went through the kernel.  The launch goes
+through `_build.Entry` (the C entry bound once, the raw current stream);
+the scratch size is asked of the library once per (B, N, dtype, device).
 """
 from __future__ import annotations
 
@@ -57,14 +59,18 @@ def block_tridiag_solve_pcr_plain(D, U, b):
     return gj_solve_small(Dw, bw)[..., 0]
 
 
+_SOLVE = _build.Entry("tridiag_pcr", "vinsat_tridiag_pcr", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int])
+# scratch elements by (B, N, f64, device index): the grid, hence the
+# scratch, depends only on these
+_work_elems = {}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tridiag_pcr")
-    if lib.vinsat_tridiag_pcr.argtypes is None:
-        lib.vinsat_tridiag_pcr.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.vinsat_tridiag_pcr.restype = ctypes.c_int
+    if lib.vinsat_tridiag_pcr_work_elems.argtypes is None:
         lib.vinsat_tridiag_pcr_work_elems.argtypes = [
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
         lib.vinsat_tridiag_pcr_work_elems.restype = ctypes.c_longlong
@@ -85,24 +91,29 @@ def resident_warps(dtype, device=None) -> int:
     return n
 
 
+def _work(Bn: int, N: int, f64: int, device) -> int:
+    """Scratch elements of one solve (the row state only where the rows
+    outnumber the resident warps), asked of the library once a shape."""
+    key = (Bn, N, f64, device.index)
+    n = _work_elems.get(key)
+    if n is None:
+        with torch.cuda.device(device):
+            n = _lib().vinsat_tridiag_pcr_work_elems(Bn, N, f64)
+        if n < 0:
+            raise RuntimeError(f"tridiag_pcr occupancy query failed: CUDA "
+                               f"error {-n}")
+        _work_elems[key] = n
+    return n
+
+
 def _launch(D, U, b):
     Bn, N = D.shape[0], D.shape[1]
-    lib = _lib()
-    f64 = int(D.dtype == torch.float64)
+    dev = D.device
+    f64 = int(D.dtype is torch.float64)
     x = torch.empty_like(b)
-    with torch.cuda.device(D.device):
-        # the row state's scratch only where the rows outnumber the warps
-        n_work = lib.vinsat_tridiag_pcr_work_elems(Bn, N, f64)
-        if n_work < 0:
-            raise RuntimeError(f"tridiag_pcr occupancy query failed: CUDA "
-                               f"error {-n_work}")
-        work = torch.empty(n_work, dtype=D.dtype, device=D.device)
-        stream = torch.cuda.current_stream(D.device).cuda_stream
-        rc = lib.vinsat_tridiag_pcr(
-            D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
-            work.data_ptr(), Bn, N, int(U.dim() == 4), f64, stream)
-    if rc != 0:
-        raise RuntimeError(f"tridiag_pcr kernel launch failed: CUDA error {rc}")
+    work = torch.empty(_work(Bn, N, f64, dev), dtype=D.dtype, device=dev)
+    _SOLVE(dev, D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
+           work.data_ptr(), Bn, N, int(U.dim() == 4), f64)
     block_tridiag_solve_pcr.launches += 1
     return x
 

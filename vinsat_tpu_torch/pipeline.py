@@ -1,6 +1,8 @@
 """End-to-end entry points of the port (vinsat_tpu/pipeline.py):
-`simulate_sequence` (the detection simulator) and `run_streaming`
-(streaming orbit determination).
+`simulate_sequence` (the detection simulator), `run_streaming`
+(streaming orbit determination), `run_batch_eval` (the orbit-by-orbit
+evaluation) and `run_constellation` (BASELINE config 4: B orbits' LM
+solves as one batched program).
 
 A stream's inputs come as (det_rows, orbit_pos_eci_km) arrays, an object
 carrying those two attributes (a SimulatedSequence, the port's or the JAX
@@ -15,15 +17,19 @@ feed with the JAX package's own draws.
 """
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional, Tuple
+import time
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from vinsat_tpu_torch.config import DEFAULT_DEVICE, resolve_device
-from vinsat_tpu_torch.core import frames
+from vinsat_tpu_torch.config import (DEFAULT_DEVICE, REFERENCE_INTRINSICS,
+                                     resolve_device)
+from vinsat_tpu_torch.core import frames, quat
+from vinsat_tpu_torch.estimation import ba, factors, ingest, window
 from vinsat_tpu_torch.estimation.window import (StreamingConfig,
                                                 StreamingResult, stream_orbit)
+from vinsat_tpu_torch.evalx import ate, crlb
 from vinsat_tpu_torch.sim import detections as det_mod
 from vinsat_tpu_torch.sim import landmarks as lm_mod
 from vinsat_tpu_torch.sim import mgrs, orbits
@@ -179,3 +185,185 @@ def run_streaming(seq, seed: int = 0,
     """Streaming orbit determination of one sequence on `device`."""
     det_rows, orbit = stream_inputs(seq)
     return stream_orbit(det_rows, orbit, seed=seed, cfg=cfg, device=device)
+
+
+def eval_row(seq, res: StreamingResult, seed: int,
+             device=DEFAULT_DEVICE) -> dict:
+    """One orbit's row of the evaluation table (bench.py's per-orbit
+    columns): detections, min and final error, the terminal information
+    bounds (evalx.crlb) and the efficiencies against them, the
+    observation span and the recovery trips; unrounded."""
+    det_rows, orbit = stream_inputs(seq)
+    row = {"seed": seed, "n_dets": len(det_rows)}
+    if not len(res.errors):
+        return row
+    cb = crlb.terminal_crlb_km(orbit, det_rows, device=device)
+    final = float(res.errors[-1])
+    row.update(
+        min_err_km=float(res.errors.min()), final_err_km=final,
+        crlb_final_km=cb["crlb_final_km"],
+        crlb_att_final_km=cb["crlb_att_final_km"],
+        efficiency=crlb.efficiency(cb["crlb_final_km"], final),
+        efficiency_att=crlb.efficiency(cb["crlb_att_final_km"], final),
+        obs_span_s=cb["obs_span_s"],
+        recovery_trips=int(res.recovery_trips))
+    return row
+
+
+def run_batch_eval(seeds: List[int], duration_s: int = 10800,
+                   cfg: StreamingConfig = StreamingConfig(),
+                   device=DEFAULT_DEVICE) -> dict:
+    """The multi-orbit evaluation: each seed simulated (the synthesized
+    16-region DB) and streamed in turn, as the JAX package does, then the
+    time-to-<5 km summary over the orbits (`ate.summarize`).  Seeds with
+    no detection are skipped."""
+    errors, times = [], []
+    for s in seeds:
+        seq = simulate_sequence(s, duration_s, device=device)
+        if len(seq.det_rows) == 0:
+            continue
+        res = run_streaming(seq, seed=s, cfg=cfg, device=device)
+        errors.append(res.errors)
+        times.append(res.times)
+    return ate.summarize(errors, times)
+
+
+class _Constellation(NamedTuple):
+    """B orbits padded to one bucket, ready for solve_window_batch."""
+
+    seeds: List[int]  # the orbits kept, in order
+    states0: torch.Tensor  # (B, n_pad, 10) noised initial states
+    prob: ba.BAProblem  # leading B on every field but intrinsics
+    lamda: torch.Tensor  # (B,)
+    params: ba.SolverParams
+    gt_states: List[np.ndarray]  # (N_b, 10) ground-truth knot states
+
+
+def _prepare_constellation(seeds: Sequence[int], seqs, duration_s: int,
+                           cfg: StreamingConfig, knot_pad: Optional[int],
+                           obs_pad: Optional[int],
+                           device) -> Optional[_Constellation]:
+    """The constellation's batch from one sequence per seed (any form
+    `stream_inputs` takes): graph, GT, gate and compaction per orbit, an
+    orbit without detections or with < 2 knots left skipped; the initial
+    noise drawn from ONE numpy Generator seeded 0, orbit after orbit
+    (position, attitude, velocity, as the JAX package draws them, so a
+    skipped orbit draws nothing); then the common n_pad / m_pad buckets,
+    the padded problems stacked, and SolverParams with the hops of the
+    longest gap.  None when no orbit is left."""
+    if cfg.dtype != "float64":
+        raise NotImplementedError(
+            f"the torch port solves in float64 only (got {cfg.dtype!r})")
+    device = resolve_device(device)
+    dtype = torch.float64
+
+    def t(a, dt=dtype):
+        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+
+    rng = np.random.default_rng(0)
+    intr = t(np.array(REFERENCE_INTRINSICS))
+    kept, valid = [], []
+    for s, seq in zip(seeds, seqs):
+        det_rows, orbit = stream_inputs(seq)
+        if len(det_rows) == 0:
+            continue
+        graph = ingest.build_graph(det_rows, duration_s)
+        gt = ingest.process_ground_truths(orbit, graph, device=device)
+        uv_proj = factors.project_landmarks(
+            t(gt.states), t(gt.landmarks_xyz), t(graph.ii, torch.int64),
+            intr).cpu().numpy()
+        graph, gt, _ = ingest.gate_and_compact(graph, gt, uv_proj)
+        N = len(graph.time_idx)
+        if N < 2 or len(graph.ii) == 0:
+            continue
+        pos0 = (gt.states[:, :3]
+                + rng.standard_normal((N, 3)) * cfg.noise_pos_km)
+        phi = quat.log(t(gt.states[:, 3:7])).cpu().numpy()
+        phi = phi + rng.standard_normal((N, 3)) * cfg.noise_ori_rad
+        q0 = quat.exp(t(phi)).cpu().numpy()
+        vs = np.abs(gt.states[:, 7:10]).mean()
+        vel0 = (gt.states[:, 7:10]
+                + rng.standard_normal((N, 3)) * vs * cfg.noise_vel_rel)
+        states = np.concatenate([pos0, q0, vel0], axis=1)
+        gaps = np.concatenate([np.diff(graph.time_idx), [0]]).astype(
+            np.float64)
+        cum = factors.cumulative_rotations(
+            t(gt.omega_full), 1.0, t(graph.time_idx, torch.int64)
+        ).cpu().numpy()
+        kept.append((states, gaps, cum, gt, graph))
+        valid.append(s)
+    if not kept:
+        return None
+    n_pad = knot_pad or max(window.bucket(p[0].shape[0], cfg.knot_bucket)
+                            for p in kept)
+    m_pad = obs_pad or max(window.bucket(len(p[4].ii), cfg.obs_bucket,
+                                         cfg.obs_bucket) for p in kept)
+    padded = [window._pad_problem(st, gaps, cum, gt.landmarks_xyz, graph.uv,
+                                  graph.conf, graph.ii, n_pad, m_pad, device,
+                                  dtype)
+              for st, gaps, cum, gt, graph in kept]
+    max_gap = max(float(p[1].max()) for p in kept)
+    return _Constellation(
+        valid, torch.stack([p[0] for p in padded]),
+        ba.stack_problems([p[1] for p in padded]),
+        torch.full((len(kept),), cfg.lambda_init, dtype=dtype, device=device),
+        ba.SolverParams(num_hops=int(np.ceil(max_gap / 100.0)) + 1),
+        [p[3].states for p in kept])
+
+
+def constellation_from_sequences(seeds: Sequence[int], seqs,
+                                 duration_s: int = 3600, num_iters: int = 20,
+                                 init_iters: int = 10,
+                                 cfg: StreamingConfig = StreamingConfig(),
+                                 knot_pad: Optional[int] = None,
+                                 obs_pad: Optional[int] = None,
+                                 device=DEFAULT_DEVICE) -> dict:
+    """run_constellation after its simulation: the sequences of `seeds`
+    (one each, in order) prepared, solved by one solve_window_batch call
+    (init_iters vision-only, schedule offset -init_iters; its wall taken
+    with the device synchronised on both sides) and scored."""
+    batch = _prepare_constellation(seeds, seqs, duration_s, cfg, knot_pad,
+                                   obs_pad, device)
+    if batch is None:
+        return {"num_orbits": 0}
+    sync = (torch.cuda.synchronize if batch.states0.is_cuda
+            else (lambda: None))
+    sync()
+    t0 = time.time()
+    out_b, _, _, _ = window.solve_window_batch(
+        batch.states0, batch.prob, batch.lamda, init_iters, num_iters,
+        batch.params, sched_offset=-init_iters)
+    sync()
+    wall = time.time() - t0
+    out = out_b.cpu().numpy()
+    B = len(batch.seeds)
+    return {
+        "num_orbits": B,
+        "orbit_seeds": batch.seeds,
+        "median_errors_km": [float(np.median(np.linalg.norm(
+            out[i, :len(gt), :3] - gt[:, :3], axis=-1)))
+            for i, gt in enumerate(batch.gt_states)],
+        "wall_s": wall,
+        "orbit_frames_per_s": B * duration_s / wall,
+    }
+
+
+def run_constellation(seeds: List[int], duration_s: int = 3600,
+                      num_iters: int = 20, init_iters: int = 10,
+                      cfg: StreamingConfig = StreamingConfig(),
+                      along_track: bool = True,
+                      knot_pad: Optional[int] = None,
+                      obs_pad: Optional[int] = None,
+                      device=DEFAULT_DEVICE) -> dict:
+    """Constellation batch orbit determination (BASELINE config 4, "8
+    orbits jit-vmapped, per-chip BA"): each seed simulated
+    (frame_stride 5), the orbits padded to one common bucket and solved by
+    ONE solve_window_batch call, whose every LM iteration runs all orbits
+    at once.  Returns {"num_orbits", "orbit_seeds", "median_errors_km",
+    "wall_s" (the synchronised solve), "orbit_frames_per_s"}, or
+    {"num_orbits": 0} when no orbit is solvable."""
+    seqs = [simulate_sequence(s, duration_s, along_track=along_track,
+                              frame_stride=5, device=device) for s in seeds]
+    return constellation_from_sequences(seeds, seqs, duration_s, num_iters,
+                                        init_iters, cfg, knot_pad, obs_pad,
+                                        device)
