@@ -21,6 +21,12 @@ CPU, to move by < 1e-10 under a 1e-15 perturbation of their initial
 states, so that the 1e-9 measures the port and not the problem: the
 only tests here that run without a card.
 
+The f32 stream on the card: K1 in f32 on the stream's first system
+(window 0 of the committed bench arc from its f64 warm start, B=9 λ
+candidates, N=64), recorded there, against its twin: relative 1e-4
+(measured 1.0e-5); four f32 LM iterations of that window on the card
+against the CPU: states relative 1e-5 (measured 9.7e-8).
+
 K3 against its plain twin at the simulator's full size (F=10801 frames,
 L=7920 landmarks) in f64 and f32, on a globally uniform DB, on the
 region-ordered synthetic DB (where the tile cull skips ~98% of the work)
@@ -346,6 +352,83 @@ def test_solve_window_batch_on_card_matches_cpu(make, init_iters, num_iters):
     assert torch.equal(cpu[1], gpu[1].cpu())
     assert _rel(gpu[0].cpu(), cpu[0]) < 1e-9
     assert _rel(gpu[3].cpu(), cpu[3]) < 1e-8
+
+
+def _bench_window0(d, dtype):
+    """Window 0 of the committed bench arc (tests/data/
+    torch_stream_seed1.npz) as the f32 stream solves it: conditioned in
+    f64 on the CPU, padded in `dtype` on d, warm-started from its f64 init
+    phase (computed once, on the CPU).  (states0, prob, params)."""
+    import os
+
+    from vinsat_tpu_torch.estimation import ingest, window
+
+    fx = np.load(os.path.join(os.path.dirname(__file__), "data",
+                              "torch_stream_seed1.npz"))
+    cfg = window.StreamingConfig(dtype="float32")
+    prep = window.prepare_stream(fx["det_rows"], fx["orbit_pos_eci_km"],
+                                 int(fx["seed"]), cfg, device="cpu")
+    t, i, _ = ingest.split_windows(prep.graph.ii, prep.knot_t)[0]
+    g = prep.graph
+
+    def pad(dev, dt):
+        return window._pad_problem(
+            prep.states0[:t], prep.gaps[:t], prep.cum_rot[:t],
+            prep.gt.landmarks_xyz[:i], g.uv[:i], g.conf[:i], g.ii[:i],
+            window.bucket(t), window.bucket(i, 64, 64), dev, dt)
+
+    params = ba.SolverParams(num_hops=int(np.ceil(prep.gaps.max() / 100))
+                             + 1, batched_lambda=9)
+    st32, prob32 = pad("cpu", torch.float32)
+    warm = window._window0_init_f64(st32, prob32, 1e-4, 10, params)
+    return warm.to(device=d, dtype=dtype), pad(d, dtype)[1], params
+
+
+@pytest.mark.cuda
+def test_kernel_f32_on_stream_system():
+    # the f32 stream's first K1 system (window 0 after its f64 init, B=9
+    # λ candidates, N=64), recorded on the card, against the twin there
+    dev = _cuda()
+    states0, prob, params = _bench_window0(dev, torch.float32)
+    seen = []
+    launch = tridiag_pcr._launch
+
+    def recording(D, U, b):
+        seen.append([a.clone() for a in (D, U, b)])
+        return launch(D, U, b)
+
+    tridiag_pcr._launch = recording
+    try:
+        ba.ba_iteration(0, states0, prob, 1e-4, params=params)
+    finally:
+        tridiag_pcr._launch = launch
+    assert len(seen) == 1 and seen[0][0].dtype == torch.float32
+    D, U, b = seen[0]
+    assert tuple(D.shape[:2]) == (9, 64)
+    x = tridiag_pcr.block_tridiag_solve_pcr(D, U, b)
+    xp = tridiag_pcr.block_tridiag_solve_pcr_plain(D, U, b)
+    err = _rel(x, xp)
+    print(f"K1 f32 on the stream's first system: rel err vs plain {err:.3e}")
+    assert err < 1e-4
+
+
+@pytest.mark.cuda
+def test_f32_window_solve_on_card_matches_cpu():
+    # 4 LM iterations of the f32 stream's window 0 from its f64 warm
+    # start, batched λ search (K1 in f32 on the card, its twin on the CPU)
+    from vinsat_tpu_torch.estimation import window
+
+    dev = _cuda()
+    out = {}
+    for d in ("cpu", dev):
+        states0, prob, params = _bench_window0(d, torch.float32)
+        out[str(d)] = window._solve_window(
+            states0, prob, 1e-4, 0, 4, params._replace(max_iters=0))
+    cpu, gpu = out["cpu"], out[str(dev)]
+    err = _rel(gpu[0].cpu(), cpu[0])
+    print(f"f32 window 0, 4 iterations: card vs CPU rel err {err:.3e}, "
+          f"λ {float(cpu[1])} / {float(gpu[1])}")
+    assert err < 1e-5
 
 
 def _k3_case(rng, F, L):

@@ -19,7 +19,7 @@ from vinsat_tpu.estimation import ingest as jingest
 from vinsat_tpu.estimation import window as jwindow
 from vinsat_tpu.evalx import ate as jate
 from vinsat_tpu_torch import pipeline
-from vinsat_tpu_torch.estimation import ingest, window
+from vinsat_tpu_torch.estimation import ba, ingest, window
 from vinsat_tpu_torch.evalx import ate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,18 +76,32 @@ def test_ate_matches_jax():
 
 
 def test_unported_modes_raise():
+    """NEES tracking, auto-calibration, the residual-gated early stop and
+    checkpoints stay unported and raise; so does the constellation in
+    f32."""
     seq = _runs()[0]
-    for kw in (dict(dtype="float32"), dict(marginalize=True),
-               dict(use_prior=True)):
+    args = (seq.det_rows, seq.orbit_pos_eci_km)
+    for kw, call in ((dict(track_nees=True), {}),
+                     (dict(auto_calibrate=True), {}),
+                     ({}, dict(solver=ba.SolverParams(conv_patience=5))),
+                     ({}, dict(resume_from="stream.w0.npz")),
+                     ({}, dict(checkpoint_path="stream"))):
         with pytest.raises(NotImplementedError):
-            window.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km,
-                                cfg=window.StreamingConfig(**kw),
-                                device="cpu")
+            window.stream_orbit(*args, cfg=window.StreamingConfig(**kw),
+                                device="cpu", **call)
+    with pytest.raises(NotImplementedError):
+        pipeline.constellation_from_sequences(
+            [1], [seq], 3600, cfg=window.StreamingConfig(dtype="float32"),
+            device="cpu")
 
 
 def test_port_imports_no_jax():
     code = ("import sys, vinsat_tpu_torch.pipeline, "
-            "vinsat_tpu_torch.kernels.tridiag_pcr; "
+            "vinsat_tpu_torch.kernels.tridiag_pcr, "
+            "vinsat_tpu_torch.kernels.matching, "
+            "vinsat_tpu_torch.run_configs, "
+            "vinsat_tpu_torch.estimation.ekf, "
+            "vinsat_tpu_torch.estimation.hybrid; "
             "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', "
             "'vinsat_tpu.')) or m == 'vinsat_tpu' for m in sys.modules)))")
     env = dict(os.environ, PYTHONPATH=ROOT)

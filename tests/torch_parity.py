@@ -10,6 +10,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vinsat_tpu import pipeline as jpipeline
@@ -23,6 +24,18 @@ from vinsat_tpu.sim import mgrs as jmgrs
 from vinsat_tpu.sim import orbits
 
 INTR = np.array([3547.8512126219637, 3547.8512126219637, 2304.0, 1296.0])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """One torch CPU thread for a module that imports this fixture, its
+    previous count restored after: the port's eager CPU work is many small
+    ops, which one thread runs faster than several, and the test workers
+    run side by side on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def T(a, dtype=torch.float64):

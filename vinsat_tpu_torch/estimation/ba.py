@@ -18,6 +18,11 @@ TPU compiler pathology and are not ported.
 Schedules, masks and the λ acceptance rule are the JAX package's; the
 schedule index is a host int, so α and Σ are Python floats here.
 
+`ba_reg_iteration` is `ba_iteration` with the window-marginal prior
+factor (the two share `_iteration`); `terminal_marginal_info`,
+`inflate_info` and `propagate_prior` build the priors that the stream's
+prior and bounded-window modes hand from one window to the next.
+
 Orbit axis: `ba_iteration` also takes B orbits at once (states (B, N, 10),
 every BAProblem field but `intrinsics` with a leading B), which is what
 the JAX package's `vmap` over `ba_iteration` computes (the constellation
@@ -29,7 +34,7 @@ without that axis.
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -336,16 +341,19 @@ def _lambda_search(solve_with, trial_residual, init_residual, lamda0,
 
 
 def _residual_means(r_obs_w, r_pred_flat, obs_valid, pair_valid, sigma: float,
-                    pred_dim: float):
-    """mean |[r_obs ; r_pred*sqrt(Sigma)]| with padding-aware counts; leading
-    batch dims of the residuals (λ candidates, then orbits) are kept, and
-    each orbit counts its own valid entries (obs_valid (..., M),
-    pair_valid (..., N-1))."""
-    s_obs = (r_obs_w.abs() * obs_valid[..., None]).sum((-2, -1))
-    n_obs = 2.0 * obs_valid.sum(-1)
-    s_pred = (r_pred_flat.abs() * math.sqrt(sigma)).sum((-2, -1))
-    n_pred = pred_dim * pair_valid.sum(-1)
-    return (s_obs + s_pred) / torch.clamp(n_obs + n_pred, min=1.0)
+                    pred_dim: float, r_pri=None, knot_valid=None):
+    """mean |[r_obs ; r_pred*sqrt(Sigma) ; r_pri]| with padding-aware
+    counts; leading batch dims of the residuals (λ candidates, then
+    orbits) are kept, and each orbit counts its own valid entries
+    (obs_valid (..., M), pair_valid (..., N-1)).  The prior's residuals
+    r_pri (..., N, 7) count where knot_valid."""
+    s = ((r_obs_w.abs() * obs_valid[..., None]).sum((-2, -1))
+         + (r_pred_flat.abs() * math.sqrt(sigma)).sum((-2, -1)))
+    n = 2.0 * obs_valid.sum(-1) + pred_dim * pair_valid.sum(-1)
+    if r_pri is not None:
+        s = s + (r_pri.abs() * knot_valid[..., None]).sum((-2, -1))
+        n = n + 7.0 * knot_valid.sum(-1)
+    return s / torch.clamp(n, min=1.0)
 
 
 def _segment_sum(vals, ii, N: int):
@@ -370,8 +378,35 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
     vision-only warm start).  states (N, 10), or (B, N, 10) with a batched
     `prob` (`stack_problems`) and lamda_init a float or (B,): B orbits in
     one iteration, the schedule and `initialize` shared."""
+    return _iteration(sched_iter, states, prob, lamda_init, params,
+                      initialize)
+
+
+def ba_reg_iteration(sched_iter: int, states, prob: BAProblem,
+                     prior: "PriorState", lamda_init,
+                     params: SolverParams = SolverParams(),
+                     initialize: bool = False) -> BAStep:
+    """One regularized LM iteration with the window-marginal prior factor
+    (the JAX package's BA_reg, its prior coefficients at their 1.0
+    default): ba_iteration plus JpᵀJp (block diagonal) and the prior's
+    rotation Newton terms.  prior: a PriorState over all N knots (zero
+    information on knots without one).  One orbit."""
+    return _iteration(sched_iter, states, prob, lamda_init, params,
+                      initialize, prior)
+
+
+def _iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
+               params: SolverParams, initialize: bool,
+               prior=None) -> BAStep:
+    """ba_iteration, or with a PriorState ba_reg_iteration: the factors,
+    the normal equations, the λ search and the retraction they share."""
     dtype, dev = states.dtype, states.device
     orbits, N = states.shape[:-2], states.shape[-2]
+
+    def prior_at(st):
+        return factors.prior_factor(st, prior.prop_states, prior.H_state,
+                                    prior.H_rot, 1.0, 1.0,
+                                    valid=prior.valid * prob.knot_valid)
 
     reproj = factors.reprojection_factor(
         states, prob.landmarks_xyz, prob.ii, prob.intrinsics)
@@ -402,6 +437,9 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
     At, Bt = A.transpose(-1, -2), B.transpose(-1, -2)
     D[..., :-1, :, :] += sigma * (At @ A)
     D[..., 1:, :, :] += sigma * (Bt @ B)
+    pf = None if prior is None else prior_at(states)
+    if pf is not None:
+        D = D + pf.Jp.transpose(-1, -2) @ pf.Jp + pf.Hq_diag
     U = sigma * (At @ B + Hq_off)
 
     # --- gradient ---------------------------------------------------------
@@ -410,7 +448,11 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
     JfT_r = torch.zeros(orbits + (N, 9), dtype=dtype, device=dev)
     JfT_r[..., :-1, :] += (At @ res_pv[..., None])[..., 0]
     JfT_r[..., 1:, :] += (Bt @ res_pv[..., None])[..., 0]
-    JTr = JgT_robs - sigma * JfT_r - sigma * qgrad
+    if pf is None:
+        JTr = JgT_robs - sigma * JfT_r - sigma * qgrad
+    else:
+        JpT_r = (pf.Jp.transpose(-1, -2) @ pf.res[..., :6, None])[..., 0]
+        JTr = JgT_robs - sigma * JfT_r - JpT_r - sigma * qgrad - pf.qgrad
 
     # --- initial residual (acceptance reference) --------------------------
     pred_dim = 6.0 if initialize else 7.0
@@ -419,9 +461,13 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
             *res_pv.shape[:-1], 7)
     else:
         r_pred_for_mean = torch.cat([res_pv, res_q[..., None]], dim=-1)
+    def prior_kw(pf_):
+        return ({} if pf_ is None else
+                dict(r_pri=pf_.res, knot_valid=prob.knot_valid))
+
     init_residual = _residual_means(
         r_obs, r_pred_for_mean * prob.pair_valid[..., None], prob.obs_valid,
-        prob.pair_valid, sigma, pred_dim)
+        prob.pair_valid, sigma, pred_dim, **prior_kw(pf))
 
     eye = torch.eye(9, dtype=dtype, device=dev)
 
@@ -441,8 +487,10 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
                 with_jacobian=False)
             r_pred1 = torch.cat([dyn1.res_pv, dyn1.res_q[..., None]],
                                 dim=-1) * prob.pair_valid[..., None]
+        pf1 = None if prior is None else prior_at(states_new)
         return _residual_means(r_obs1, r_pred1, prob.obs_valid,
-                               prob.pair_valid, sigma, pred_dim)
+                               prob.pair_valid, sigma, pred_dim,
+                               **prior_kw(pf1))
 
     def retract(dpose):
         position = states[..., :3] + dpose[..., 0:3]
@@ -473,3 +521,116 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
             orbits + (1, 9, 9)))[..., 0, :, :]
         + lamda_used[..., None, None] * eye)
     return BAStep(states_new, lamda_init_new, last_hessian, trial_res)
+
+
+def terminal_marginal_info(states, prob: BAProblem,
+                           params: SolverParams = SolverParams(),
+                           sigma_obs_px: float = 4.0,
+                           sigma_dyn: Optional[float] = None,
+                           extra_diag=None):
+    """The true marginal information (9, 9) of the last valid knot of one
+    window: inv((H⁻¹)_NN) is the final Schur complement S_N of the forward
+    (Thomas) elimination of the block-tridiagonal H, built with physical
+    weights (observations at conf/σ_px², dynamics at σ_dyn, by default the
+    solver's σ_max) and Jacobi scaling.  extra_diag (N, 9, 9) adds, e.g.,
+    the anchor knot's prior information.  The forward sweep is a host loop
+    of 9x9 LU solves up to the last valid knot (the JAX package scans all N
+    and picks that one; the rows after it do not reach it)."""
+    dtype, dev = states.dtype, states.device
+    N = states.shape[0]
+    sigma = float(params.sigma_max if sigma_dyn is None else sigma_dyn)
+    reproj = factors.reprojection_factor(
+        states, prob.landmarks_xyz, prob.ii, prob.intrinsics)
+    dyn = factors.dynamics_factor(
+        states, prob.gaps, prob.cum_rot, params.quat_coeff, params.vel_coeff,
+        valid_pair=prob.pair_valid, num_hops=params.num_hops,
+        max_substep=params.max_substep, with_jacobian=True)
+    w = prob.conf * prob.obs_valid / (sigma_obs_px ** 2)
+    JgW = reproj.J * w[:, None, None]
+    D = _segment_sum(JgW.transpose(-1, -2) @ reproj.J, prob.ii, N)
+    D = D + sigma * dyn.Hq_diag
+    At, Bt = dyn.A.transpose(-1, -2), dyn.B.transpose(-1, -2)
+    D[:-1] += sigma * (At @ dyn.A)
+    D[1:] += sigma * (Bt @ dyn.B)
+    U = sigma * (At @ dyn.B + dyn.Hq_off)
+    if extra_diag is not None:
+        D = D + extra_diag
+    # small diagonal floor: padding and unobserved blocks stay invertible
+    eye = torch.eye(9, dtype=dtype, device=dev)
+    D = D + 1e-9 * eye
+    diag = torch.diagonal(D, dim1=-2, dim2=-1)
+    s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-30))
+    Ds = D * s[:, :, None] * s[:, None, :]
+    Us = U * s[:-1, :, None] * s[1:, None, :]
+    last = max(int(prob.knot_valid.sum()) - 1, 0)
+    S = Ds[0]
+    for t in range(1, last + 1):
+        Ut = Us[t - 1]
+        S = Ds[t] - Ut.transpose(-1, -2) @ torch.linalg.solve_ex(S, Ut)[0]
+    # undo the Jacobi scaling
+    return S / (s[last][:, None] * s[last][None, :])
+
+
+def inflate_info(H9, pos_floor_km: float, rot_floor: float,
+                 vel_floor: float) -> np.ndarray:
+    """Covariance floors on a 9x9 information matrix (host numpy):
+    inv(inv(H) + diag(floor²)), keeping the marginal's correlations while
+    stopping an anchor from over-pinning the next window."""
+    H9 = np.asarray(H9, dtype=np.float64)
+    cov = np.linalg.inv(H9 + 1e-12 * np.eye(9))
+    floors = np.concatenate([
+        np.full(3, pos_floor_km ** 2),
+        np.full(3, rot_floor ** 2),
+        np.full(3, vel_floor ** 2),
+    ])
+    return np.linalg.inv(cov + np.diag(floors))
+
+
+# [pos, vel] rows of a 9x9 [pos, phi, vel] information matrix
+POS_VEL = [0, 1, 2, 6, 7, 8]
+
+
+def split_info(H9):
+    """The blocks of a [pos, phi, vel] information matrix (..., 9, 9),
+    numpy or torch, that prior_factor reads: (H_state [pos, vel]
+    (..., 6, 6), H_rot [phi] (..., 3, 3)); the pos/vel-phi cross terms
+    are dropped."""
+    return H9[..., POS_VEL, :][..., :, POS_VEL], H9[..., 3:6, 3:6]
+
+
+class PriorState(NamedTuple):
+    """Propagated window-marginal prior (the streaming handoff state)."""
+
+    prop_states: torch.Tensor  # (N, 10)
+    H_state: torch.Tensor  # (N, 6, 6) pos/vel information
+    H_rot: torch.Tensor  # (N, 3, 3) rotation information
+    valid: torch.Tensor  # (N,) 0/1: which knots carry a prior
+
+
+def propagate_prior(end_state, last_hessian, gaps_to_knots, cum_rots,
+                    num_hops: int = 16,
+                    max_substep: float = 100.0) -> PriorState:
+    """The previous window's terminal state and marginal covariance
+    propagated to each new knot.  end_state (10,); last_hessian (9, 9) in
+    [pos, phi, vel] order; gaps_to_knots (N,) seconds from the window end
+    to each new knot; cum_rots (N, 4) IMU rotations over those spans.
+    Inverses do not raise on a singular matrix (they give inf / NaN, as in
+    the JAX package)."""
+    from vinsat_tpu_torch.core import dynamics
+
+    def inv(a):
+        return torch.linalg.inv_ex(a)[0]
+
+    N = gaps_to_knots.shape[0]
+    Hs, Hr = split_info(last_hessian)
+    cov_state, cov_rot = inv(Hs), inv(Hr)
+    p, v, J = dynamics.propagate_gaps_with_jacobian(
+        end_state[:3].expand(N, 3), end_state[7:10].expand(N, 3),
+        gaps_to_knots, num_hops=num_hops, max_substep=max_substep)
+    cov_s = J @ cov_state @ J.transpose(-1, -2)
+    q = quat.normalize(quat.multiply(end_state[3:7].expand(N, 4), cum_rots))
+    Rc = quat.to_matrix(cum_rots).transpose(-1, -2)
+    cov_r = Rc @ cov_rot @ Rc.transpose(-1, -2)
+    return PriorState(torch.cat([p, q, v], dim=-1), inv(cov_s), inv(cov_r),
+                      torch.ones(N, dtype=end_state.dtype,
+                                 device=end_state.device))

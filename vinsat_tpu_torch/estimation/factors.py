@@ -14,7 +14,9 @@ and shard_maps).  With an orbit axis each orbit's observations index its
 own knots: `ii` (B, M) against `states` (..., B, N, 10)
 (`gather_knots`).
 `lax.associative_scan` becomes `_inclusive_scan`, a log-depth
-Hillis–Steele scan.
+Hillis–Steele scan.  The window handoff's prior factor (`prior_factor`)
+and IMU rotations over spans (`span_rotations`) serve the prior and
+bounded-window stream modes.
 """
 from __future__ import annotations
 
@@ -282,3 +284,79 @@ def cumulative_rotations(omega_seq, dt, knot_times):
     Ra = gather_knots(prefix, knot_times)
     Rb = gather_knots(prefix, nxt)
     return quat.normalize(quat.multiply(quat.conjugate(Ra), Rb))
+
+
+def span_rotations(omega_seq, dt, start: int, ends):
+    """IMU rotation products over [start, e) for each e in `ends`:
+    c_e = prod_{k=start}^{e-1} exp(dt w_k), from the same prefix scan as
+    cumulative_rotations.  omega_seq (T, 3); start a host int; ends (N,)
+    int64 -> (N, 4)."""
+    rots = quat.exp(dt * omega_seq)
+    ident = torch.zeros_like(rots[:1])
+    ident[0, 3] = 1.0
+    prefix = _inclusive_scan(torch.cat([ident, rots], dim=0), quat.multiply)
+    Ra = prefix[int(start)]
+    Rb = prefix[ends]
+    return quat.normalize(quat.multiply(quat.conjugate(Ra)[None], Rb))
+
+
+# ---------------------------------------------------------------------------
+# Prior factor (the window handoff)
+# ---------------------------------------------------------------------------
+
+
+class PriorFactor(NamedTuple):
+    res: torch.Tensor  # (N, 7) [state residual(6), rot residual(1)]
+    Jp: torch.Tensor  # (N, 6, 9) jacobian of the 6-dim state residual
+    qgrad: torch.Tensor  # (N, 9)
+    Hq_diag: torch.Tensor  # (N, 9, 9)
+
+
+def prior_factor(states, prop_states, H_state, H_rot, vel_coeff_prior,
+                 quat_coeff_prior, valid=None) -> PriorFactor:
+    """Marginal prior tying knots to the states propagated from the
+    previous window:
+    res_state_i = H_state_i @ [pos_prop - pos; vc*(vel_prop - vel)] (6),
+    res_rot_i   = qc * (1 - |q_prop^T Gq_prop H_rot Gq(q)^T q|).
+    H_state (N, 6, 6), H_rot (N, 3, 3) are propagated information
+    matrices; the rotation term's gradient and lifted curvature are the
+    JAX package's closed forms (its module says why they look as they
+    do).  states (..., N, 10) may lead with λ candidates."""
+    N, dtype, dev = states.shape[-2], states.dtype, states.device
+    lead = states.shape[:-1]
+    if valid is None:
+        valid = torch.ones(N, dtype=dtype, device=dev)
+    pos, q, vel = states[..., :3], states[..., 3:7], states[..., 7:10]
+    pos_p, q_p, vel_p = (prop_states[:, :3], prop_states[:, 3:7],
+                         prop_states[:, 7:10])
+
+    dr = torch.cat([pos_p - pos, vel_coeff_prior * (vel_p - vel)], -1)
+    res_state = (H_state @ dr[..., None])[..., 0] * valid[:, None]
+
+    W = torch.cat([torch.ones(3, dtype=dtype, device=dev),
+                   vel_coeff_prior * torch.ones(3, dtype=dtype, device=dev)])
+    J6 = -(H_state * W[None, None, :]) * valid[:, None, None]
+    Jp = torch.zeros((N, 6, 9), dtype=dtype, device=dev)
+    Jp[:, :, 0:3] = J6[:, :, 0:3]
+    Jp[:, :, 6:9] = J6[:, :, 3:6]
+    Jp = Jp.expand(lead + (6, 9))
+
+    Gq = quat.attitude_jacobian(q)
+    Gq_p = quat.attitude_jacobian(q_p)
+    b = (Gq_p.transpose(-1, -2) @ q_p[..., None])[..., 0]  # (N, 3)
+    Hb = (H_rot.transpose(-1, -2) @ b[..., None])[..., 0]  # H_rot^T b
+    m = (Gq.transpose(-1, -2) @ q[..., None])[..., 0]
+    scal = (m * Hb).sum(-1)
+    s = torch.where(scal == 0, torch.ones_like(scal), torch.sign(scal))
+    res_rot = quat_coeff_prior * (1.0 - scal.abs()) * valid
+
+    dm_dq = _dGqT_g(q) + Gq.transpose(-1, -2)  # (..., N, 3, 4)
+    g_amb = (-quat_coeff_prior * s[..., None]
+             * (Hb[..., None, :] @ dm_dq)[..., 0, :] * valid[:, None])
+    qgrad = torch.zeros(lead + (9,), dtype=dtype, device=dev)
+    qgrad[..., 3:6] = (Gq.transpose(-1, -2) @ g_amb[..., None])[..., 0]
+    Hq_diag = torch.zeros(lead + (9, 9), dtype=dtype, device=dev)
+    Hq_diag[..., 3:6, 3:6] = _dGqT_g(g_amb) @ Gq
+
+    res = torch.cat([res_state, res_rot[..., None]], dim=-1)
+    return PriorFactor(res=res, Jp=Jp, qgrad=qgrad, Hq_diag=Hq_diag)

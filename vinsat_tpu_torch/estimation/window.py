@@ -13,12 +13,18 @@ window's solve when the λ search is batched).
 padded windows in one batched LM loop, where the JAX package vmaps
 `_solve_window`.
 
-Ported: the synchronous growing-prefix path with the recovery ladder's
-damped retry.  The JAX package's fused async "fast" path (it hides TPU
-dispatch latency and is bit-identical to the synchronous path), its f64
-host-CPU escapes (no-ops for the f64 streams the port runs) and the
-marginalize / prior / EKF / NEES / checkpoint modes are not: those
-options raise NotImplementedError.  float64 only for now.
+Ported: the synchronous path in float64 and float32, with the JAX
+package's recovery ladder (damped retry, then the window solved again in
+f64), window 0's init phase in f64 (`window0_init_f64`), and its modes:
+the window-marginal prior on new knots (`use_prior`, `solve_window_reg`),
+bounded windows of [anchor] + new knots carrying the terminal marginal
+information (`marginalize`) and the EKF+BA hybrid (`use_ekf_hybrid`).
+Conditioning always runs in f64; a float32 stream solves its windows in
+f32 and its f64 escapes on the same device (the JAX package sends them
+to the host CPU).  Not ported: the fused async "fast" path (it hides TPU
+dispatch latency and is bit-identical to the synchronous path); NEES
+tracking and auto-calibration, checkpoints and the residual-gated early
+stop raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import torch
 from vinsat_tpu_torch.config import (DEFAULT_DEVICE, REFERENCE_INTRINSICS,
                                      resolve_device)
 from vinsat_tpu_torch.core import dynamics, quat
-from vinsat_tpu_torch.estimation import ba, factors, ingest, refine
+from vinsat_tpu_torch.estimation import ba, factors, hybrid, ingest, refine
 
 
 def bucket(n: int, step: int = 16, minimum: int = 16) -> int:
@@ -124,6 +130,20 @@ def solve_window_batch(states0_b, prob_b: ba.BAProblem, lamda_b, init_iters,
                          num_iters, params, int(sched_offset))
 
 
+def solve_window_reg(states0, prob: ba.BAProblem, prior: ba.PriorState,
+                     lamda_init, num_iters: int,
+                     params: ba.SolverParams = ba.SolverParams()):
+    """num_iters regularized LM iterations (ba_reg_iteration: the
+    window-marginal prior factor on), the last or best iterate as in
+    `_lm_loop`.  Returns (states, lamda, last_hessian, mean_residual)."""
+
+    def step_i(i, states, lam):
+        return ba.ba_reg_iteration(i, states, prob, prior, lam,
+                                   params=params, initialize=False)
+
+    return _lm_loop(step_i, states0, lamda_init, 0, num_iters, params)
+
+
 def _propagate_impl(state10, omega_seq, length: int):
     """Dense 1 Hz propagation of one state (10,) over `length` steps,
     rolling the quaternion with the IMU rotations omega_seq[:length].
@@ -156,10 +176,9 @@ class StreamingResult(NamedTuple):
 
 class StreamingConfig(NamedTuple):
     """The JAX StreamingConfig, field for field (meaning and measured
-    defaults are documented there).  The port runs the growing-prefix
-    mode in float64: use_prior / marginalize / use_ekf_hybrid / track_nees
-    / auto_calibrate raise NotImplementedError, and recover_f64 /
-    window0_init_f64 are no-ops, as they are for f64 JAX streams."""
+    defaults are documented there).  dtype "float64" or "float32";
+    track_nees / auto_calibrate raise NotImplementedError; recover_f64 and
+    window0_init_f64 are no-ops on a float64 stream, as in JAX."""
 
     num_iters: int = 20
     init_iters: int = 10
@@ -338,36 +357,116 @@ def prepare_stream(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
     return PreparedStream(graph, gt, states, gaps, cum_rot, knot_t, intr_np)
 
 
-def _check_supported(cfg: StreamingConfig) -> None:
-    if cfg.dtype != "float64":
-        raise NotImplementedError(
-            f"the torch port streams in float64 only (got {cfg.dtype!r})")
-    for name in ("use_prior", "marginalize", "use_ekf_hybrid", "track_nees",
-                 "auto_calibrate"):
+_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def _check_supported(cfg: StreamingConfig, checkpoint_path=None,
+                     resume_from=None) -> None:
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"StreamingConfig.dtype must be one of "
+                         f"{sorted(_DTYPES)}, got {cfg.dtype!r}")
+    for name in ("track_nees", "auto_calibrate"):
         if getattr(cfg, name):
             raise NotImplementedError(f"StreamingConfig.{name} is not ported")
+    if checkpoint_path is not None or resume_from is not None:
+        raise NotImplementedError("stream checkpoints are not ported")
+
+
+def compose_prior_blocks(H9: np.ndarray):
+    """Split a 9x9 [pos, phi, vel] information matrix into prior_factor's
+    (H_state [pos, vel] (6, 6), H_rot [phi] (3, 3)) blocks, and the 9x9
+    matrix recomposed from just those blocks (the anchor's extra_diag for
+    terminal_marginal_info)."""
+    Hs, Hr = ba.split_info(H9)
+    H9c = np.zeros((9, 9))
+    H9c[np.ix_(ba.POS_VEL, ba.POS_VEL)] = Hs
+    H9c[3:6, 3:6] = Hr
+    return Hs, Hr, H9c
+
+
+def _padded_prior(n_pad: int, a: int, prop: np.ndarray, Hs: np.ndarray,
+                  Hr: np.ndarray, device, dtype) -> ba.PriorState:
+    """A PriorState over n_pad knots carrying `prop` / Hs / Hr on knots
+    [a, a + len(prop)) and no information elsewhere."""
+    b = a + len(prop)
+    prop_pad = np.zeros((n_pad, 10))
+    prop_pad[:, 6] = 1.0
+    prop_pad[a:b] = prop
+    Hs_pad = np.zeros((n_pad, 6, 6))
+    Hs_pad[a:b] = Hs
+    Hr_pad = np.zeros((n_pad, 3, 3))
+    Hr_pad[a:b] = Hr
+    val = np.zeros(n_pad)
+    val[a:b] = 1.0
+    return ba.PriorState(*(torch.as_tensor(x, dtype=dtype, device=device)
+                           for x in (prop_pad, Hs_pad, Hr_pad, val)))
+
+
+def _cast(tup, dtype):
+    """A NamedTuple of tensors with its floating fields cast to dtype."""
+    return type(tup)(*(x.to(dtype) if x.is_floating_point() else x
+                       for x in tup))
+
+
+def _solve_window_f64(st0, prob: ba.BAProblem, lamda0, init_iters: int,
+                      num_iters: int, params: ba.SolverParams,
+                      prior: Optional[ba.PriorState] = None):
+    """The recovery ladder's f64 rung: the same padded window (and prior)
+    cast up and solved again in f64, on the device it lies on (the JAX
+    package goes to the host CPU; the card has an f64 rate).  Returns the
+    f64 (states, lamda, last_hessian, mean_residual), or None when the
+    window is already f64 (nothing to escalate to)."""
+    if st0.dtype == torch.float64:
+        return None
+    st64, prob64 = st0.to(torch.float64), _cast(prob, torch.float64)
+    if prior is not None:
+        return solve_window_reg(st64, prob64, _cast(prior, torch.float64),
+                                float(lamda0), num_iters, params)
+    return _solve_window(st64, prob64, float(lamda0), int(init_iters),
+                         num_iters, params)
+
+
+def _window0_init_f64(st0, prob: ba.BAProblem, lamda0, init_iters: int,
+                      params: ba.SolverParams):
+    """Window 0's init phase in f64 (StreamingConfig.window0_init_f64):
+    init_iters vision-only and 10 full LM iterations at a fixed count
+    with the sequential λ search, through _solve_window_f64.  Returns the
+    f64 warm-start states, or None for an f64 window or a non-finite
+    result."""
+    r = _solve_window_f64(st0, prob, lamda0, init_iters, int(init_iters) + 10,
+                          params._replace(max_iters=0, batched_lambda=0))
+    if r is None or not bool(torch.isfinite(r[0]).all()):
+        return None
+    return r[0]
 
 
 def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                  seed: int = 0, cfg: StreamingConfig = StreamingConfig(),
                  solver: ba.SolverParams = ba.SolverParams(),
                  intrinsics: Optional[np.ndarray] = None,
-                 device=DEFAULT_DEVICE) -> StreamingResult:
+                 device=DEFAULT_DEVICE, checkpoint_path=None,
+                 resume_from=None) -> StreamingResult:
     """Run streaming OD on one detection sequence on `device`.
 
     det_rows: (M, 6) [frame, lon, lat, xc, yc, conf]; orbit_pos_eci_km:
     (T, 3) GT 1 Hz ECI positions in km.  Returns the recorded errors/times
-    for the time-to-<5km evaluation.
+    for the time-to-<5km evaluation.  Conditioning runs in f64 whatever
+    cfg.dtype; the windows are solved in cfg.dtype.  checkpoint_path /
+    resume_from (the JAX package's stream checkpoints) raise
+    NotImplementedError.
     """
-    _check_supported(cfg)
+    _check_supported(cfg, checkpoint_path, resume_from)
     device = resolve_device(device)
-    dtype = torch.float64
+    dtype = _DTYPES[cfg.dtype]
 
     def t(a, dt=dtype):
         return torch.tensor(np.asarray(a), dtype=dt, device=device)
 
+    # conditioning in f64: in f32 it costs km of final error (the JAX
+    # package measured 0.39 -> 6.5 km on the bench arc)
     prep = prepare_stream(det_rows, orbit_pos_eci_km, seed, cfg,
-                          intrinsics=intrinsics, device=device, dtype=dtype)
+                          intrinsics=intrinsics, device=device,
+                          dtype=torch.float64)
     if prep is None:
         return StreamingResult(np.array([]), np.array([]), -1,
                                np.zeros((0, 10)), np.array([], dtype=np.int64))
@@ -375,6 +474,8 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
         return StreamingResult(np.array([]), np.array([]), -1,
                                prep.gt.states, prep.graph.time_idx)
     graph, gt, states = prep.graph, prep.gt, prep.states0
+    # the intrinsics reach the solve cast to its dtype (_pad_problem), as
+    # the JAX package casts them
     gaps, cum_rot, knot_t, intr_np = (prep.gaps, prep.cum_rot, prep.knot_t,
                                       prep.intr_np)
 
@@ -384,7 +485,11 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
     times: List[np.ndarray] = []
     first_detection = int(knot_t[windows[0][0] - 1])
     cur_states: Optional[np.ndarray] = None  # optimized prefix
+    last_hessian: Optional[np.ndarray] = None
+    prior_full = None  # (prop_states, H_state, H_rot, t_init)
+    marg_info: Optional[np.ndarray] = None  # (9, 9) anchor information
     t_prev = 0
+    i_prev = 0
     max_hops = int(np.ceil(gaps.max() / solver.max_substep)) + 1
     solver = solver._replace(
         num_hops=max(solver.num_hops, max_hops),
@@ -401,7 +506,14 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
         solver_later = solver._replace(
             max_iters=min(solver.max_iters, max(cfg.max_iters_later,
                                                 cfg.num_iters + 1)))
+    bounded = cfg.marginalize or cfg.use_ekf_hybrid
     n_trips = 0
+
+    def anchor_info(H9: np.ndarray) -> np.ndarray:
+        """The anchor prior's information: the static covariance floors
+        (the JAX package's auto_calibrate branch is not ported)."""
+        return ba.inflate_info(H9, cfg.prior_pos_floor_km,
+                               cfg.prior_rot_floor, cfg.prior_vel_floor)
 
     def record_tail(t_init: int):
         nonlocal cur_states
@@ -422,12 +534,14 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
             states_prop[:, :3] - gt.states[t_init:, :3], axis=-1))
         times.append(knot_t[t_init:])
 
-    def attempt(solve_fn, warm, prob, lamda):
+    def attempt(solve_fn, warm, lamda, ctx):
         """Recovery ladder: a solve with non-finite states or a gated
         reprojection RMS above cfg.recover_rms_px is re-run from the same
-        warm start with heavy damping; the best finite candidate wins,
-        else the warm start.  (The JAX ladder's next rung, an f64 re-solve
-        on the host, is a no-op for f64 streams.)"""
+        warm start with heavy damping; if still bad and cfg.recover_f64,
+        an f32 window is solved again in f64 (_solve_window_f64), whose
+        result is cast back and competes on RMS like the others.  The
+        best finite candidate wins, else the warm start.
+        ctx = (st0, prob, prior, init_iters, params) of the window."""
         nonlocal n_trips
         rms_gate = cfg.recover_rms_px if cfg.recover_rms_px > 0 else 0.0
 
@@ -436,7 +550,7 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                 return math.inf
             if not rms_gate:
                 return 0.0
-            return float(_reproj_rms_impl(o, prob))
+            return float(_reproj_rms_impl(o, ctx[1]))
 
         cands = []
         for rung, lam0 in enumerate((lamda, 1e2)):
@@ -448,17 +562,29 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                 n_trips += 1
             if math.isfinite(r):
                 cands.append((r, out))
-        if cands:
-            return min(cands, key=lambda c: c[0])[1]
+        if cfg.recover_f64:
+            st0_c, prob_c, prior_c, init_c, params_c = ctx
+            r64 = _solve_window_f64(st0_c, prob_c, lamda, init_c,
+                                    cfg.num_iters, params_c, prior=prior_c)
+            if r64 is not None and bool(torch.isfinite(r64[0]).all()):
+                out = tuple(x.to(dtype) for x in r64)
+                cands.append((rms_of(out[0]), out))
+        good = [c for c in cands if math.isfinite(c[0])]
+        if good:
+            return min(good, key=lambda c: c[0])[1]
         return (warm, torch.full((), cfg.lambda_init, dtype=dtype,
                                  device=device),
                 torch.zeros((9, 9), dtype=dtype, device=device),
                 torch.full((), math.nan, dtype=dtype, device=device))
 
     for w, (t_final, i_final, seq_end) in enumerate(windows):
+        # the reduced budget needs >= 2 passes in the solved span; bounded
+        # windows are anchor + one pass and always take the full budget
         solver_w = solver
-        if w > 0 and _multi_pass_window(knot_t[graph.ii[:i_final]], cfg):
+        if not bounded and w > 0 and _multi_pass_window(
+                knot_t[graph.ii[:i_final]], cfg):
             solver_w = solver_later
+        sub_anchor: Optional[int] = None
         if w == 0:
             window_states = states[:t_final]
         else:
@@ -474,28 +600,102 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                 states_prop[:, :3] - gt.states[t_init:t_final, :3],
                 axis=-1)[:-1])
             times.append(knot_t[t_init:t_final][:-1])
-            window_states = np.concatenate([cur_states, states_prop], axis=0)
+            if bounded and marg_info is not None:
+                # bounded-memory window: [anchor] + new knots
+                sub_anchor = t_prev - 1
+                new_states = states_prop
+                if cfg.use_ekf_hybrid:
+                    gap_max = float((knot_t[t_init:t_final]
+                                     - knot_t[t_init - 1:t_final - 1]).max())
+                    new_states = hybrid.ekf_refine_window(
+                        cur_states[-1], anchor_info(marg_info), knot_t,
+                        t_init, t_final, cum_rot, graph, gt, intr_np, dtype,
+                        num_hops=int(np.ceil(gap_max / solver.max_substep))
+                        + 1, max_substep=solver.max_substep, device=device)
+                window_states = np.concatenate([cur_states[-1:], new_states],
+                                               axis=0)
+            else:
+                window_states = np.concatenate([cur_states, states_prop],
+                                               axis=0)
+                if cfg.use_prior:
+                    # window-marginal prior on the newly propagated knots
+                    spans = (knot_t[t_init:t_final]
+                             - knot_t[t_init - 1]).astype(np.float64)
+                    pri = ba.propagate_prior(
+                        t(cur_states[-1]), t(last_hessian), t(spans),
+                        factors.span_rotations(
+                            t(gt.omega_full), 1.0, int(knot_t[t_init - 1]),
+                            t(knot_t[t_init:t_final], torch.int64)),
+                        num_hops=int(np.ceil(spans.max()
+                                             / solver.max_substep)) + 1,
+                        max_substep=solver.max_substep)
+                    prior_full = (pri.prop_states.cpu().numpy(),
+                                  pri.H_state.cpu().numpy(),
+                                  pri.H_rot.cpu().numpy(), t_init)
 
         # each window starts its λ schedule fresh from lambda_init
+        lamda = cfg.lambda_init
         init_iters = cfg.init_iters if w == 0 else 0
-        n_pad = bucket(t_final, cfg.knot_bucket)
-        m_pad = bucket(i_final, cfg.obs_bucket, cfg.obs_bucket)
+        first = 0 if sub_anchor is None else sub_anchor
+        i_first = 0 if sub_anchor is None else i_prev
+        n_pad = bucket(t_final - first, cfg.knot_bucket)
+        m_pad = bucket(max(i_final - i_first, 1), cfg.obs_bucket,
+                       cfg.obs_bucket)
         st0, prob = _pad_problem(
-            window_states, gaps[:t_final], cum_rot[:t_final],
-            gt.landmarks_xyz[:i_final], graph.uv[:i_final],
-            graph.conf[:i_final], graph.ii[:i_final], n_pad, m_pad, device,
-            dtype, intrinsics=intr_np)
+            window_states, gaps[first:t_final], cum_rot[first:t_final],
+            gt.landmarks_xyz[i_first:i_final], graph.uv[i_first:i_final],
+            graph.conf[i_first:i_final], graph.ii[i_first:i_final] - first,
+            n_pad, m_pad, device, dtype, intrinsics=intr_np)
         # the gap bridge runs only the hops this window's gaps use: the
         # rest are zero-length, and a zero-length hop changes nothing
         solver_w = solver_w._replace(num_hops=min(
             solver_w.num_hops,
-            dynamics.active_hops(gaps[:t_final], solver_w.max_substep)))
-        out_states, _, _, _ = attempt(
-            lambda l0: _solve_window(st0, prob, l0, init_iters,
-                                     cfg.num_iters, solver_w),
-            st0, prob, cfg.lambda_init)
-        cur_states = out_states[:t_final].cpu().numpy()
-        t_prev = t_final
+            dynamics.active_hops(gaps[first:t_final], solver_w.max_substep)))
+        prior = None
+        extra_diag0 = None
+        if sub_anchor is not None:
+            Hs0, Hr0, extra_diag0 = compose_prior_blocks(
+                anchor_info(marg_info))
+            prior = _padded_prior(n_pad, 0, cur_states[-1:], Hs0[None],
+                                  Hr0[None], device, dtype)
+        else:
+            if w == 0 and cfg.window0_init_f64:
+                o64 = _window0_init_f64(st0, prob, lamda, init_iters,
+                                        solver_w)
+                if o64 is not None:
+                    st0 = o64.to(dtype)
+                    init_iters = 0
+            if cfg.use_prior and w > 0 and prior_full is not None:
+                ps, hs, hr, a = prior_full
+                prior = _padded_prior(n_pad, a, ps, hs, hr, device, dtype)
+        if prior is None:
+            out = attempt(
+                lambda l0: _solve_window(st0, prob, l0, init_iters,
+                                         cfg.num_iters, solver_w),
+                st0, lamda, (st0, prob, None, init_iters, solver_w))
+        else:
+            out = attempt(
+                lambda l0: solve_window_reg(st0, prob, prior, l0,
+                                            cfg.num_iters, solver_w),
+                st0, lamda, (st0, prob, prior, 0, solver_w))
+        out_states, _, last_h, _ = out
+        out_np = out_states[:t_final - first].cpu().numpy()
+        if sub_anchor is None:
+            cur_states = out_np
+        else:
+            cur_states = np.concatenate([cur_states[:-1], out_np], axis=0)
+        last_hessian = last_h.cpu().numpy()
+        t_prev, i_prev = t_final, i_final
+
+        if bounded:
+            # the terminal marginal information for the next window's
+            # anchor prior (Schur complement over the window just solved)
+            extra = np.zeros((n_pad, 9, 9))
+            if extra_diag0 is not None:
+                extra[0] = extra_diag0
+            marg_info = ba.terminal_marginal_info(
+                out_states, prob, solver_w, extra_diag=t(extra)
+            ).cpu().numpy().astype(np.float64)
 
         errors.append(np.linalg.norm(
             cur_states[-1:, :3] - gt.states[t_final - 1:t_final, :3],

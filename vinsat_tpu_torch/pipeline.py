@@ -228,6 +228,76 @@ def run_batch_eval(seeds: List[int], duration_s: int = 10800,
     return ate.summarize(errors, times)
 
 
+def _noised_states(gt_states: np.ndarray, rng: np.random.Generator,
+                   cfg: StreamingConfig, device) -> np.ndarray:
+    """Initial knot states: GT plus noise, drawn from `rng` as the JAX
+    package draws them (position, attitude through log / exp on `device`
+    in f64, then velocity scaled by the mean |GT velocity|)."""
+    N = gt_states.shape[0]
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float64, device=device)
+
+    pos0 = gt_states[:, :3] + rng.standard_normal((N, 3)) * cfg.noise_pos_km
+    phi = quat.log(t(gt_states[:, 3:7])).cpu().numpy()
+    phi = phi + rng.standard_normal((N, 3)) * cfg.noise_ori_rad
+    q0 = quat.exp(t(phi)).cpu().numpy()
+    vs = np.abs(gt_states[:, 7:10]).mean()
+    vel0 = (gt_states[:, 7:10]
+            + rng.standard_normal((N, 3)) * vs * cfg.noise_vel_rel)
+    return np.concatenate([pos0, q0, vel0], axis=1)
+
+
+def _gated(det_rows: np.ndarray, orbit: np.ndarray, orbit_len: int, device):
+    """The detection graph and GT of one sequence, gated on the GT
+    reprojection and compacted: (graph, gt)."""
+    graph = ingest.build_graph(det_rows, orbit_len)
+    gt = ingest.process_ground_truths(orbit, graph, device=device)
+    uv_proj = factors.project_landmarks(
+        *(torch.as_tensor(np.asarray(a), device=device) for a in (
+            gt.states, gt.landmarks_xyz, graph.ii.astype(np.int64),
+            np.array(REFERENCE_INTRINSICS)))).cpu().numpy()
+    graph, gt, _ = ingest.gate_and_compact(graph, gt, uv_proj)
+    return graph, gt
+
+
+def run_full_batch(seq, seed: int = 0, num_iters: int = 100,
+                   init_iters: int = 10,
+                   cfg: StreamingConfig = StreamingConfig(),
+                   device=DEFAULT_DEVICE
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Whole-arc optimization (BASELINE config 2, "full-batch BA"): the
+    gated graph of the whole sequence as one padded window, num_iters LM
+    iterations with schedule index i - init_iters, the first init_iters
+    vision-only, the sequential λ search, f64 on `device`.  Returns (final
+    knot states, knot times, GT knot states) as numpy."""
+    if cfg.dtype != "float64":
+        raise NotImplementedError(
+            f"the torch port solves the full batch in float64 only (got "
+            f"{cfg.dtype!r})")
+    device = resolve_device(device)
+    dtype = torch.float64
+    rng = np.random.default_rng(seed)
+    det_rows, orbit = stream_inputs(seq)
+    graph, gt = _gated(det_rows, orbit, orbit.shape[0], device)
+    N = len(graph.time_idx)
+    states = _noised_states(gt.states, rng, cfg, device)
+    gaps = np.concatenate([np.diff(graph.time_idx), [0]]).astype(np.float64)
+    cum_rot = factors.cumulative_rotations(
+        torch.as_tensor(gt.omega_full, dtype=dtype, device=device), 1.0,
+        torch.as_tensor(graph.time_idx, device=device)).cpu().numpy()
+    solver = ba.SolverParams(num_hops=int(np.ceil(gaps.max() / 100.0)) + 1)
+    n_pad = window.bucket(N, cfg.knot_bucket)
+    m_pad = window.bucket(len(graph.ii), cfg.obs_bucket, cfg.obs_bucket)
+    st0, prob = window._pad_problem(
+        states, gaps, cum_rot, gt.landmarks_xyz, graph.uv, graph.conf,
+        graph.ii, n_pad, m_pad, device, dtype)
+    out, _, _, _ = window._solve_window(st0, prob, cfg.lambda_init,
+                                        init_iters, num_iters, solver,
+                                        sched_offset=-init_iters)
+    return out[:N].cpu().numpy(), graph.time_idx, gt.states
+
+
 class _Constellation(NamedTuple):
     """B orbits padded to one bucket, ready for solve_window_batch."""
 
@@ -261,30 +331,16 @@ def _prepare_constellation(seeds: Sequence[int], seqs, duration_s: int,
         return torch.tensor(np.asarray(a), dtype=dt, device=device)
 
     rng = np.random.default_rng(0)
-    intr = t(np.array(REFERENCE_INTRINSICS))
     kept, valid = [], []
     for s, seq in zip(seeds, seqs):
         det_rows, orbit = stream_inputs(seq)
         if len(det_rows) == 0:
             continue
-        graph = ingest.build_graph(det_rows, duration_s)
-        gt = ingest.process_ground_truths(orbit, graph, device=device)
-        uv_proj = factors.project_landmarks(
-            t(gt.states), t(gt.landmarks_xyz), t(graph.ii, torch.int64),
-            intr).cpu().numpy()
-        graph, gt, _ = ingest.gate_and_compact(graph, gt, uv_proj)
+        graph, gt = _gated(det_rows, orbit, duration_s, device)
         N = len(graph.time_idx)
         if N < 2 or len(graph.ii) == 0:
             continue
-        pos0 = (gt.states[:, :3]
-                + rng.standard_normal((N, 3)) * cfg.noise_pos_km)
-        phi = quat.log(t(gt.states[:, 3:7])).cpu().numpy()
-        phi = phi + rng.standard_normal((N, 3)) * cfg.noise_ori_rad
-        q0 = quat.exp(t(phi)).cpu().numpy()
-        vs = np.abs(gt.states[:, 7:10]).mean()
-        vel0 = (gt.states[:, 7:10]
-                + rng.standard_normal((N, 3)) * vs * cfg.noise_vel_rel)
-        states = np.concatenate([pos0, q0, vel0], axis=1)
+        states = _noised_states(gt.states, rng, cfg, device)
         gaps = np.concatenate([np.diff(graph.time_idx), [0]]).astype(
             np.float64)
         cum = factors.cumulative_rotations(
