@@ -20,7 +20,7 @@ Phases (each prints its lines; any failure exits non-zero):
      (9N x 9N) systems;
   4. the streaming slice: orbit determination of the committed 10800 s
      fixture (tests/data/torch_stream_seed1.npz) through the port's
-     run_streaming on cuda in f64, once cold and twice timed, held to the
+     run_streaming on cuda in f64, once cold and once timed, held to the
      JAX package's result in the fixture (window count, time to 5 km,
      final error within 0.01 km), with K1's launch count from that run
      and the (B, N) shapes it was launched at;
@@ -48,8 +48,8 @@ Phases (each prints its lines; any failure exits non-zero):
      bounds at the CUDA cores' issue rate: after the cull, and by brute
      force;
   9. the main path from the port's own generator: simulate_sequence(1)
-     in mode a on cuda, then streamed: finite, >= 2 windows, final error
-     under 5 km, with the K3 and K1 launch counts of that run;
+     in mode a on cuda, then streamed: finite, >= 2 windows,
+     final error under 5 km, with the K3 and K1 launch counts of that run;
  10. K2 against its plain twin on the card at the long arc's shape (2168
      knots, D=4, random J, r, w from a seed): relative error <= 1e-12 in
      f64 and <= 1e-5 with f32=True; the kernel's call time (20 calls back
@@ -88,11 +88,11 @@ Phases (each prints its lines; any failure exits non-zero):
  14. the evaluation: the mode-b sequence of 7 streamed on cuda and held
      to tests/data/torch_eval_seed1.npz (windows and time to 5 km equal,
      final error within 0.01 km, terminal_crlb_km's three bounds within
-     1e-6 relative); then run_batch_eval([0, 1]) at 10800 s from the
+     1e-6 relative); then run_batch_eval([0, 1]) at 3600 s from the
      port's own generator: a finite summary and its per-orbit rows;
  15. the f32 stream: torch's f32 matmuls checked true f32 (no TF32), the
      fixture of 4 streamed with StreamingConfig(dtype="float32"), once
-     cold and twice timed: 7 windows, 275.0 s to 5 km, final error within
+     cold and once timed: 7 windows, 275.0 s to 5 km, final error within
      0.01 km of JAX's f64 result, of JAX's f32 run
      (tests/data/torch_modes_seed1.npz) and of phase 4's; the walls beside
      phase 4's, the seconds in the f64 escapes (window 0's init, the
@@ -114,7 +114,39 @@ Phases (each prints its lines; any failure exits non-zero):
      1e-4 km, the EKF-only passes' errors within 1e-6 km; then config 3
      from the port's own generator (finite, BA-only and hybrid under
      5 km, K3 launched); each config's wall, peak device memory and K1
-     launches by shape.
+     launches by shape;
+ 17. the stream modes on the bench rows of 4 (JAX's results in
+     tests/data/torch_dist_stream_seed1.npz), under torch's deterministic
+     kernels: a track_nees stream checkpointed at every window (7 NEES
+     samples, JAX's recorded times, each window's terminal marginal within
+     1e-6 relative (Frobenius) of JAX's, its estimate within 0.01 km,
+     block_nees on JAX's samples within 1e-6 of JAX's values), resumed
+     from its w0 and w3 checkpoints (equal to the uninterrupted run: times,
+     errors and final states within 1e-12 relative) and from JAX's w0
+     checkpoint (JAX's final within 0.01 km); a bounded stream with
+     auto_calibrate (JAX's times, final within 0.01 km); an early-stop
+     stream (conv_patience 5): the LM iterations of every window solve
+     equal to JAX's, final within 0.01 km;
+ 18. config 5(b), stream_orbit_sharded on a 1x8 mesh from JAX's rows (max
+     30 iterations, seed 1) in f64 at the default dispatch (every window on
+     one shard), with shard_min_knots=0 (every window on the 8 shards) and
+     bounded: each window's route, n_pad and d_pad (JAX's), K2's launches
+     by (dtype, N, D); JAX's recorded times, every error within 1e-6 km
+     (tightened from 1e-4 on the card's 1.4e-9 / 7.4e-9 km), the final
+     within 0.01 km; K2 launched at some D != 4; then in f32 on
+     the 8 shards under torch's deterministic kernels: every knot and the
+     final within 0.01 km of JAX's f32 run, the final within 0.05 km of
+     the f64 one (a near tie of the last window's best iterate in f32), K2
+     launched in f32; K2 timed at the largest (N, D) of the f64 and the
+     f32 run;
+ 19. configs 4, 5(a) and 2 in f32 on JAX's data: config 4 (phase 13's
+     sequences): every K1 launch at (8, 768) in f32, each orbit's median
+     within 0.01 km of JAX's f32 median and 0.02 km of its f64 one (JAX's
+     own f32 medians lie up to 0.005 km from its f64), K1 timed on the run's
+     last f32 system; config 5(a): median within 0.01 km of JAX's f32, 20
+     K2 launches in f32; config 2 (run_fullbatch): median within 0.01 km
+     of JAX's f32, every K1 launch at (1, 768) in f32, K1 timed on its
+     last system.
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the device JSON line; the kernels' JSON record comes
 before them.  Needs torch with CUDA and nvcc; imports no JAX.
@@ -138,6 +170,8 @@ LONGARC_FIXTURE = os.path.join(ROOT, "tests", "data",
 CONST_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_constellation.npz")
 EVAL_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_eval_seed1.npz")
 MODES_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_modes_seed1.npz")
+DIST_FIXTURE = os.path.join(ROOT, "tests", "data",
+                            "torch_dist_stream_seed1.npz")
 K1_SOURCE = "vinsat_tpu_torch/kernels/csrc/tridiag_pcr.cu"
 K1_REPLACES = "vinsat_tpu/kernels/tridiag_pallas.py:157"
 K3_SOURCE = "vinsat_tpu_torch/kernels/csrc/visible_count.cu"
@@ -145,6 +179,9 @@ K3_REPLACES = "vinsat_tpu/kernels/matching.py:49"
 K2_SOURCE = "vinsat_tpu_torch/kernels/csrc/normal_eq.cu"
 K2_REPLACES = "vinsat_tpu/kernels/normal_eq.py:54"
 DURATION_S = 10800
+# the evaluation loop's arcs in phase 14 (cut from 10800 s to keep the
+# script inside its 1200 s limit with phases 17-19 added)
+EVAL_DURATION_S = 3600
 K1_TIME_N = (64, 128, 256, 448, 1024)
 # H100 SXM data-sheet peaks at 700 W: f64 on the tensor cores (34 TFLOP/s
 # outside them), f32 outside them (their TF32 is not f32), HBM3 bandwidth
@@ -553,6 +590,427 @@ def _fixture_draws(fx, mode):
                                  g("score"), g("noise"), g("conf")))
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic kernels inside the block (index_add_ on the
+    card sums with atomics otherwise, whose order changes the last bits
+    from run to run); ops without one only warn, silenced here."""
+    import warnings
+
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _phase17(dev, smi) -> dict:
+    """17. The stream modes on the card, from the bench fixture; returns
+    K1's launches by run."""
+    import tempfile
+
+    import numpy as np
+    from vinsat_tpu_torch.estimation import ba, window
+    from vinsat_tpu_torch.evalx import calibration
+    from vinsat_tpu_torch.kernels import tridiag_pcr
+
+    fx, dfx = np.load(STREAM_FIXTURE), np.load(DIST_FIXTURE)
+    rows, orbit, seed = fx["det_rows"], fx["orbit_pos_eci_km"], int(fx["seed"])
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    launches = {}
+
+    def stream(key, tag, cfg, **kw):
+        solve.launches = 0
+        t0 = time.time()
+        res = window.stream_orbit(rows, orbit, seed=seed, cfg=cfg,
+                                  device=dev, **kw)
+        launches[key] = solve.launches
+        print(f"{tag}: {time.time() - t0:.2f} s, final {res.errors[-1]:.6f} "
+              f"km, {len(res.times)} recorded errors, K1 launches "
+              f"{solve.launches}  [{smi}]")
+        _check(np.isfinite(res.errors).all() and solve.launches > 0,
+               (tag, "finite, K1 launched"))
+        return res
+
+    def same_run(tag, got, want):
+        """got equals the uninterrupted run: times equal, errors and final
+        states within 1e-12 relative."""
+        same_t = np.array_equal(got.times, want.times)
+        d_e = (float(np.abs(got.errors - want.errors).max()
+                     / np.abs(want.errors).max()) if same_t else np.inf)
+        d_s = float(np.abs(got.final_states - want.final_states).max()
+                    / np.abs(want.final_states).max())
+        print(f"{tag}: times equal to the uninterrupted run's: {same_t}, "
+              f"errors rel {d_e:.3e}, final states rel {d_s:.3e}")
+        _check(same_t and d_e <= 1e-12 and d_s <= 1e-12, (tag, d_e, d_s))
+
+    with tempfile.TemporaryDirectory() as d, _deterministic():
+        ck = os.path.join(d, "ck")
+        nees = stream("nees", "NEES stream (track_nees), checkpointed every "
+                      "window",
+                      window.StreamingConfig(track_nees=True),
+                      checkpoint_path=ck)
+        infos, jinfos = nees.window_infos, dfx["nees_window_infos"]
+        _check(infos is not None and len(infos) == len(jinfos) == 7,
+               ("NEES samples", None if infos is None else len(infos)))
+        _check(np.array_equal(nees.times, dfx["nees_times"]), "NEES times")
+        d_info = max(float(np.linalg.norm(h - hj) / np.linalg.norm(hj))
+                     for h, hj in zip(infos, jinfos))
+        d_est = float(np.abs(nees.window_est[:, :3]
+                             - dfx["nees_window_est"][:, :3]).max())
+        d_gt = float(np.abs(nees.window_gt - dfx["nees_window_gt"]).max())
+        # the calibration functions on JAX's own samples, and on the run's
+        bn_j = np.array([[calibration.block_nees(e, g, h)[k]
+                          for k in ("pos", "rot", "vel")] for h, e, g in zip(
+                              jinfos, dfx["nees_window_est"],
+                              dfx["nees_window_gt"])])
+        d_fn = float(np.abs(bn_j / dfx["nees_block"] - 1.0).max())
+        bn = np.array([[calibration.block_nees(e, g, h)[k]
+                        for k in ("pos", "rot", "vel")] for h, e, g in zip(
+                            infos, nees.window_est, nees.window_gt)])
+        print(f"NEES: window marginals rel (Frobenius) vs JAX max "
+              f"{d_info:.3e}; window estimates max |d| {d_est:.3e} km, GT "
+              f"{d_gt:.3e} km; block_nees on JAX's samples rel vs JAX "
+              f"{d_fn:.3e}; the run's block NEES (pos, rot, vel) by window: "
+              + "; ".join(f"{a:.4g}, {b:.4g}, {c:.4g}" for a, b, c in bn)
+              + " (JAX: " + "; ".join(f"{a:.4g}, {b:.4g}, {c:.4g}"
+                                      for a, b, c in dfx["nees_block"])
+              + ")")
+        _check(d_info <= 1e-6 and d_fn <= 1e-6 and d_est <= 0.01
+               and d_gt <= 1e-9, ("NEES", d_info, d_fn, d_est, d_gt))
+        c = calibration.calibrate_inflation(infos, nees.window_est,
+                                            nees.window_gt)
+        print("NEES: calibrated inflation " + json.dumps(c)
+              + ", equivalent floors "
+              + json.dumps(calibration.floors_from_inflation(infos, c)))
+        for w in (0, 3):
+            same_run(f"resumed from w{w}", stream(
+                f"resume_w{w}",
+                f"NEES stream resumed from its w{w} checkpoint",
+                window.StreamingConfig(track_nees=True),
+                resume_from=f"{ck}.w{w}.npz"), nees)
+        # the JAX package's w0 checkpoint of the same run
+        np.savez(os.path.join(d, "jax.w0.npz"), **{
+            k[len("ckpt_w0_"):]: dfx[k] for k in dfx.files
+            if k.startswith("ckpt_w0_")})
+        rj = stream("resume_jax_w0",
+                    "NEES stream resumed from JAX's w0 checkpoint",
+                    window.StreamingConfig(track_nees=True),
+                    resume_from=os.path.join(d, "jax.w0.npz"))
+        f_j = float(dfx["nees_errors"][-1])
+        print(f"resumed from JAX's w0: final {rj.errors[-1]:.6f} km, JAX's "
+              f"uninterrupted {f_j:.6f} km")
+        _check(np.array_equal(rj.times, dfx["nees_times"])
+               and abs(rj.errors[-1] - f_j) <= 0.01, ("JAX w0", rj.errors[-1]))
+
+    auto = stream("auto_calibrate",
+                  "bounded stream, anchor prior auto-calibrated",
+                  window.StreamingConfig(marginalize=True,
+                                         auto_calibrate=True))
+    f_a = float(dfx["autocal_errors"][-1])
+    same_a = np.array_equal(auto.times, dfx["autocal_times"])
+    print(f"auto_calibrate: times equal to JAX's {same_a}, final "
+          f"{auto.errors[-1]:.6f} km (JAX {f_a:.6f}), NEES samples "
+          f"{len(auto.window_infos)}")
+    _check(same_a and abs(auto.errors[-1] - f_a) <= 0.01,
+           ("auto_calibrate", auto.errors[-1], f_a))
+
+    # the early stop: the LM iterations of every window solve, counted
+    count, iters = [0], []
+
+    def counted_iteration(run, *a, **kw):
+        count[0] += 1
+        return run(*a, **kw)
+
+    def counted_solve(run, *a, **kw):
+        count[0] = 0
+        out = run(*a, **kw)
+        iters.append(count[0])
+        return out
+
+    solver = ba.SolverParams(**json.loads(str(dfx["early_solver_kwargs"])))
+    with _patched(ba, "ba_iteration", counted_iteration), \
+            _patched(window, "_solve_window", counted_solve):
+        early = stream("early_stop", f"early-stop stream (conv_patience "
+                       f"{solver.conv_patience})", window.StreamingConfig(),
+                       solver=solver)
+    f_e = float(dfx["early_errors"][-1])
+    print(f"early stop: iterations by window solve {iters} (JAX "
+          f"{dfx['early_iters'].tolist()}), final {early.errors[-1]:.6f} km "
+          f"(JAX {f_e:.6f}); one host sync an iteration past num_iters")
+    _check(iters == dfx["early_iters"].tolist()
+           and abs(early.errors[-1] - f_e) <= 0.01,
+           ("early stop", iters, early.errors[-1]))
+    return launches
+
+
+def _phase18(dev, smi) -> dict:
+    """18. Config 5(b), the sharded stream, on the card from JAX's rows;
+    returns K2's launches and its timing at the largest (N, D) of the
+    forced run."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch.dist import mesh, sharded_ba
+    from vinsat_tpu_torch.dist import stream as dstream
+    from vinsat_tpu_torch.estimation import window
+    from vinsat_tpu_torch.kernels import normal_eq
+
+    dfx = np.load(DIST_FIXTURE)
+    rows, orbit = dfx["det_rows_5b"], dfx["orbit_pos_eci_km_5b"]
+    seed, n_arc = int(dfx["seed"]), int(dfx["n_arc"])
+    mesh8 = mesh.make_mesh(1, n_arc, device=dev)
+    k2 = normal_eq.assemble_normal_eq
+    out = {"launches": {}}
+
+    def run(tag, cfg_kw, **kw):
+        """The sharded stream with each window's route and budget and K2's
+        launches by (dtype, N, D) recorded."""
+        builds, routes = [], []
+        k2_by = collections.Counter()
+        biggest = []
+
+        def on_build(build, *a, **k):
+            builds.append(tuple(a[7:9]))  # (n_pad, d_pad)
+            return build(*a, **k)
+
+        def on_solver(make, m, *a, **k):
+            routes.append(f"{m.n_orbit}x{m.n_arc}")
+            return make(m, *a, **k)
+
+        def on_k2(assemble, J, r, w, f32=False):
+            k2_by[(str(J.dtype)[6:], J.shape[0], J.shape[1])] += 1
+            if not biggest or J.numel() > biggest[0].numel():
+                biggest[:] = [t.clone() for t in (J, r, w)]
+            return assemble(J, r, w, f32=f32)
+
+        cfg = window.StreamingConfig(max_iters=30, **cfg_kw)
+        k2.launches = 0
+        t0 = time.time()
+        with _patched(dstream, "_build_window_problem", on_build), \
+                _patched(sharded_ba, "make_sharded_window_solver",
+                         on_solver), \
+                _patched(sharded_ba, "assemble_normal_eq", on_k2):
+            res = dstream.stream_orbit_sharded(rows, orbit, mesh8, seed=seed,
+                                               cfg=cfg, **kw)
+        wall = time.time() - t0
+        launches = k2.launches
+        out["launches"][tag] = launches
+        jt, je = dfx[f"b5_{tag}_times"], dfx[f"b5_{tag}_errors"]
+        same_t = np.array_equal(res.times, jt)
+        d = float(np.abs(res.errors - je).max()) if same_t else np.inf
+        # the window problems built: the f32 run builds window 0 twice
+        # (again from its f64 init)
+        print(f"5(b) {tag}: {wall:.2f} s, windows (route, n_pad, d_pad): "
+              + ", ".join(f"({r}, {b[0]}, {b[1]})"
+                          for r, b in zip(routes, builds[-len(routes):]))
+              + f"; builds {builds} (JAX "
+              f"{dfx[f'b5_{tag}_shapes'].tolist()}); K2 launches {launches} "
+              "by (dtype, N, D): "
+              + ", ".join(f"{k[0]} {k[1]}x{k[2]}: {c}"
+                          for k, c in sorted(k2_by.items()))
+              + f"; times equal to JAX's {same_t}, per-knot max |d| vs JAX "
+              f"{d:.3e} km, final {res.errors[-1]:.6f} km (JAX "
+              f"{je[-1]:.6f})  [{smi}]")
+        _check(np.isfinite(res.errors).all() and same_t,
+               (tag, "finite, JAX's times"))
+        _check(builds == [tuple(b) for b in dfx[f"b5_{tag}_shapes"]],
+               (tag, "window budgets", builds))
+        _check(launches > 0 and sum(k2_by.values()) == launches,
+               (tag, "K2 launches", launches))
+        return res, routes, k2_by, biggest, d
+
+    res_a, routes_a, _, _, d_a = run("policy", {})
+    res_b, routes_b, k2_b, big_b, d_b = run("forced", {},
+                                            shard_min_knots=0)
+    res_c, routes_c, _, _, d_c = run("marg", dict(marginalize=True),
+                                     shard_min_knots=0)
+    # every knot within 1e-6 km: the card reads 1.4e-9 (one shard) and
+    # 7.4e-9 km (eight), the CPU 9.1e-10 / 7.1e-9
+    for tag, d, res in (("policy", d_a, res_a), ("forced", d_b, res_b),
+                        ("marg", d_c, res_c)):
+        f_j = float(dfx[f"b5_{tag}_errors"][-1])
+        _check(d <= 1e-6 and abs(res.errors[-1] - f_j) <= 0.01,
+               ("5(b) vs JAX", tag, d, res.errors[-1]))
+    _check(set(routes_a) == {"1x1"} and set(routes_b) == {f"1x{n_arc}"}
+           and set(routes_c) == {f"1x{n_arc}"},
+           ("5(b) routes", routes_a, routes_b, routes_c))
+    d_not4 = sorted({k[2] for k in k2_b if k[2] != 4})
+    print(f"5(b): K2 ran at D = {d_not4} (not 4) on the forced run")
+    _check(d_not4, ("K2 at D != 4", dict(k2_b)))
+
+    with _deterministic():
+        res_f, _, k2_f, big_f, d_f = run("f32", dict(dtype="float32"),
+                                         shard_min_knots=0)
+    f_j32, f_b = float(dfx["b5_f32_errors"][-1]), float(res_b.errors[-1])
+    k2_f32 = sum(c for k, c in k2_f.items() if k[0] == "float32")
+    print(f"5(b) f32: final {res_f.errors[-1]:.6f} km, JAX's f32 "
+          f"{f_j32:.6f}, the f64 run (b) {f_b:.6f}; per-knot max |d| vs "
+          f"JAX's f32 {d_f:.3e} km; K2 launches in f32 {k2_f32}")
+    # JAX's f32 run: every knot within 0.01 km (the card reads 4.97e-3),
+    # the final within 0.01 km (reads 8.1e-4).  The f64 run: the final
+    # within 0.05 km, since the last window's best iterate is a near tie in
+    # f32 (residuals 4e-4 apart, final knots 0.044 km apart; a 1e-6 px
+    # change of the rows moves JAX's and the port's runs between the two)
+    _check(d_f <= 0.01 and abs(res_f.errors[-1] - f_j32) <= 0.01
+           and abs(res_f.errors[-1] - f_b) <= 0.05 and k2_f32 > 0,
+           ("5(b) f32", d_f, res_f.errors[-1], f_j32, f_b, k2_f32))
+    out["launches"]["f32_in_f32"] = k2_f32
+
+    # K2 at each run's largest (N, D), beside the two einsums
+    out["shape"] = _k2_at_shape(*big_b, 1e-12, "5(b)'s largest window", smi)
+    out["shape_f32"] = _k2_at_shape(*big_f, 1e-5,
+                                    "5(b)'s largest window in f32", smi)
+    return out
+
+
+def _k2_at_shape(J, r, w, tol: float, what: str, smi: str) -> dict:
+    """K2 on one recorded (J, r, w) against its plain twin (relative
+    `tol`), timed in turns with the twin, beside the two einsums and its
+    bound: prints the `K2 time` line and returns the shape's record."""
+    import torch
+    from vinsat_tpu_torch.kernels import normal_eq
+
+    k2 = normal_eq.assemble_normal_eq
+    plain = normal_eq.assemble_normal_eq_plain
+    N, D = J.shape[:2]
+    dtype = str(J.dtype)[6:]
+    G, g = k2(J, r, w)
+    G_p, g_p = plain(J, r, w)
+    torch.cuda.synchronize()
+    err = max(float((G - G_p).abs().max() / G_p.abs().max()),
+              float((g - g_p).abs().max() / g_p.abs().max()))
+    ms, plain_ms, rd = _alternate(lambda: plain(J, r, w),
+                                  lambda: k2(J, r, w))
+    JW = J * w[..., None, None]
+    lib_ms = _time_ms(lambda: (torch.einsum("ndki,ndkj->nij", JW, J),
+                               torch.einsum("ndki,ndk->ni", JW, r)))
+    # per row: 9 products J w, then 45 + 9 FMAs (G's upper triangle, g)
+    bound = _bound_ms(N * 2 * D * (9 + 2 * 54),
+                      PEAK_F64 if dtype == "float64" else PEAK_F32,
+                      J.element_size() * (J.numel() + r.numel() + w.numel()
+                                          + N * 90))
+    print(f"K2 time N={N} D={D} {dtype} ({what}): kernel {ms:.4f} ms "
+          f"({rd[1]:.4f}, {rd[2]:.4f}), plain {plain_ms:.4f} ms "
+          f"({rd[0]:.4f}, {rd[3]:.4f}), the two einsums {lib_ms:.4f} ms, "
+          f"bound {bound[0]:.6f} ms ({bound[1]}); rel err vs plain "
+          f"{err:.3e}  [{smi}]")
+    _check(err <= tol, ("K2", what, err))
+    return {"N": N, "D": D, "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+            "max_rel_err": err}
+
+
+def _phase19(dev, smi, seqs4) -> dict:
+    """19. Configs 4, 5(a) and 2 in f32 on the card from JAX's data
+    (`seqs4`: config 4's 8 sequences, from JAX's draws); returns K1's and
+    K2's launches and K1's timing at (8, 768) in f32."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch import pipeline, run_configs
+    from vinsat_tpu_torch.dist import long_arc, mesh, sharded_ba
+    from vinsat_tpu_torch.estimation import window
+    from vinsat_tpu_torch.kernels import normal_eq, tridiag_pcr
+
+    dfx, c4 = np.load(DIST_FIXTURE), np.load(CONST_FIXTURE)
+    la_fx, md = np.load(LONGARC_FIXTURE), np.load(MODES_FIXTURE)
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    k2 = normal_eq.assemble_normal_eq
+    cfg32 = window.StreamingConfig(dtype="float32")
+    out = {}
+
+    # config 4 in f32: every K1 launch at (B, n_pad) in f32
+    k1_by, k1_last = collections.Counter(), []
+
+    def on_launch(D, U, b):
+        k1_by[(str(D.dtype)[6:], D.shape[0], D.shape[1])] += 1
+        k1_last[:] = [a.clone() for a in (D, U, b)]
+
+    solve.launches = 0
+    seeds4 = [int(v) for v in c4["seeds"]]
+    with _k1_recording(on_launch):
+        r4 = pipeline.constellation_from_sequences(
+            seeds4, seqs4, json.loads(str(c4["sim_kwargs"]))["duration_s"],
+            int(c4["num_iters"]), int(c4["init_iters"]), cfg32, device=dev)
+    med = np.array(r4["median_errors_km"])
+    d32 = np.abs(med - dfx["c4_f32_median_errors_km"])
+    d64 = np.abs(med - c4["median_errors_km"])
+    print(f"config 4 f32: medians " + ", ".join(f"{e:.6f}" for e in med)
+          + f" km; max |d| vs JAX f32 {d32.max():.3e}, vs JAX f64 "
+          f"{d64.max():.3e} km; solve wall {r4['wall_s']:.2f} s; K1 "
+          f"launches {solve.launches} by (dtype, B, N): "
+          + ", ".join(f"{k[0]} {k[1]}x{k[2]}: {c}"
+                      for k, c in sorted(k1_by.items())) + f"  [{smi}]")
+    # f32 against f32 within 0.01 km; against f64 within 0.02 km (JAX's
+    # own f32 medians lie up to 0.005 km from its f64 ones, and K1's f32
+    # PCR rounds apart from JAX's CPU f32 solve)
+    d_jj = np.abs(dfx["c4_f32_median_errors_km"] - c4["median_errors_km"])
+    print(f"config 4 f32: JAX's own f32 medians lie up to {d_jj.max():.3e} "
+          f"km from its f64 ones")
+    _check(r4["orbit_seeds"] == dfx["c4_f32_seeds"].tolist()
+           and d32.max() <= 0.01 and d64.max() <= 0.02,
+           ("config 4 f32", med.tolist()))
+    _check(solve.launches > 0 and set(k1_by) == {
+        ("float32", len(seeds4), int(c4["n_pad"]))},
+        ("config 4 f32 K1", dict(k1_by)))
+    out["k1_config4_f32"] = solve.launches
+    out["k1_shape"] = _k1_at_shape(*k1_last, PEAK_F32,
+                                   "config 4 f32, the run's last system", smi)
+
+    # config 5(a) in f32: 20 K2 launches in f32
+    k2_dt = collections.Counter()
+
+    def on_k2(assemble, J, r, w, f32=False):
+        k2_dt[str(J.dtype)[6:]] += 1
+        return assemble(J, r, w, f32=f32)
+
+    prob, gt, kt, n_real = long_arc.build_sharded_problem(
+        la_fx, n_arc=int(la_fx["n_arc"]), dtype=torch.float32, device=dev,
+        **json.loads(str(la_fx["problem_kwargs"])))
+    k2.launches = 0
+    t0 = time.time()
+    with _patched(sharded_ba, "assemble_normal_eq", on_k2):
+        res5 = long_arc.solve_long_arc(
+            mesh.make_mesh(1, int(la_fx["n_arc"]), device=dev), prob, gt, kt,
+            n_real, **json.loads(str(la_fx["solve_kwargs"])))
+    wall5 = time.time() - t0
+    med5, med5_j = (float(np.median(res5.errors_km)),
+                    float(np.median(dfx["c5a_f32_errors_km"])))
+    print(f"config 5(a) f32: median {med5:.6f} km (JAX f32 {med5_j:.6f}, "
+          f"f64 {float(np.median(la_fx['errors_km'])):.6f}), {wall5:.2f} s, "
+          f"K2 launches {k2.launches} by dtype {dict(k2_dt)}  [{smi}]")
+    _check(np.isfinite(res5.states).all() and abs(med5 - med5_j) <= 0.01,
+           ("config 5(a) f32", med5, med5_j))
+    _check(k2.launches == 20 and k2_dt == {"float32": 20},
+           ("config 5(a) f32 K2", k2.launches, dict(k2_dt)))
+    out["k2_longarc_f32"] = k2.launches
+
+    # config 2 in f32
+    solve.launches = 0
+    k1_by.clear()
+    seq12 = {"det_rows": md["det_rows_12"],
+             "orbit_pos_eci_km": md["orbit_pos_eci_km_12"]}
+    with _k1_recording(on_launch):
+        r2 = run_configs.run_fullbatch(3600, seq=seq12, dtype="float32",
+                                       device=dev)
+    med2_j = float(np.median(dfx["c2_f32_errors"]))
+    print(f"config 2 f32: median {r2['median_error_km']:.6f} km (JAX f32 "
+          f"{med2_j:.6f}, f64 {float(np.median(md['c2_errors'])):.6f}), "
+          f"{r2['wall_s']:.2f} s, K1 launches {solve.launches}  [{smi}]")
+    _check(abs(r2["median_error_km"] - med2_j) <= 0.01
+           and set(k1_by) == {("float32", 1, 768)}, ("config 2 f32", r2,
+                                                     dict(k1_by)))
+    out["k1_config2_f32"] = solve.launches
+    out["k1_shape2"] = _k1_at_shape(*k1_last, PEAK_F32,
+                                    "config 2 f32, the run's last system",
+                                    smi)
+    return out
+
+
 T_START = time.time()
 
 
@@ -685,7 +1143,7 @@ def main() -> int:
     cold = time.time() - t0
     k1_launches = solve.launches
     walls = []
-    for _ in range(2):
+    for _ in range(1):
         t0 = time.time()
         res = pipeline.run_streaming(fx, seed=seed, cfg=cfg, device=dev)
         walls.append(time.time() - t0)
@@ -1278,13 +1736,13 @@ def main() -> int:
 
     t0 = time.time()
     with _patched(pipeline, "run_streaming", record_stream):
-        summary14 = pipeline.run_batch_eval([0, 1], DURATION_S, cfg=cfg,
-                                            device=dev)
+        summary14 = pipeline.run_batch_eval([0, 1], EVAL_DURATION_S,
+                                            cfg=cfg, device=dev)
     wall_ev = time.time() - t0
     k1_ev, k3_ev = solve.launches, k3.launches
     rows14 = [pipeline.eval_row(sq, r, s, device=dev)
               for sq, r, s in streamed]
-    print(f"run_batch_eval([0, 1], {DURATION_S}): {wall_ev:.2f} s, K1 "
+    print(f"run_batch_eval([0, 1], {EVAL_DURATION_S}): {wall_ev:.2f} s, K1 "
           f"launches {k1_ev}, K3 launches {k3_ev}; summary "
           + json.dumps(summary14) + f"  [{smi}]")
     for row in rows14:
@@ -1344,7 +1802,7 @@ def main() -> int:
     k1_launches32 = solve.launches
     by32 = dict(k1_by)
     esc32 = dict(escape_s)
-    walls32 = [stream32(fx, seed, cfg32)[1] for _ in range(2)]
+    walls32 = [stream32(fx, seed, cfg32)[1]]
     t5_32 = ate.time_to_threshold(res32.errors, res32.times, 5.0)
     final32 = float(res32.errors[-1])
     jax32 = float(md["f32_final_error_km"])
@@ -1618,6 +2076,14 @@ def main() -> int:
 
     phase_done(16)
 
+    # 17-19: the stream modes, config 5(b), and configs 2, 4, 5(a) in f32
+    k1_17 = _phase17(dev, smi)
+    phase_done(17)
+    p18 = _phase18(dev, smi)
+    phase_done(18)
+    p19 = _phase19(dev, smi, seqs4)
+    phase_done(19)
+
     print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
     k3_ms, k3_plain_ms, k3_bound, k3_dev = k3_times[("regions", "float64")]
     print(json.dumps({"kernels": [
@@ -1633,7 +2099,10 @@ def main() -> int:
                               "eval_orbit": k1_14, "batch_eval": k1_ev,
                               "f32_stream": k1_launches32,
                               "fullbatch": sum(k1_by2.values()),
-                              "config3": sum(k1_by3.values())},
+                              "config3": sum(k1_by3.values()),
+                              "stream_modes": k1_17,
+                              "constellation_f32": p19["k1_config4_f32"],
+                              "fullbatch_f32": p19["k1_config2_f32"]},
          "constellation_shape": dict(
              k1_shape4, max_rel_err=k1_err4,
              max_rel_err_run_first=k1_run4["first"][0],
@@ -1648,7 +2117,11 @@ def main() -> int:
              backward_err_run={t: r[2] for t, r in k1_run32.items()}),
          "fullbatch_shape": dict(
              k1_shape2, launches=sum(k1_by2.values()),
-             max_rel_err=k1_err2)},
+             max_rel_err=k1_err2),
+         "constellation_f32_shape": dict(
+             p19["k1_shape"], launches=p19["k1_config4_f32"]),
+         "fullbatch_f32_shape": dict(
+             p19["k1_shape2"], launches=p19["k1_config2_f32"])},
         {"name": "visible_count", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain_ms,
@@ -1664,9 +2137,15 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "library_ms": k2_lib_ms,
-         "design": "a warp per knot, staged in its shared slot; G's upper "
-                   "triangle mirrored",
-         "device_kernels_per_call": k2_call[False][0]}]}))
+         "design": "a warp per knot, staged in its shared slot (64 "
+                   "observation slots at a time); G's upper triangle "
+                   "mirrored",
+         "device_kernels_per_call": k2_call[False][0],
+         "launches_by_path": {"long_arc": k2_launches,
+                              "sharded_stream": p18["launches"],
+                              "long_arc_f32": p19["k2_longarc_f32"]},
+         "sharded_stream_shape": p18["shape"],
+         "sharded_stream_f32_shape": p18["shape_f32"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -318,11 +318,16 @@ def test_run_constellation_own_generator():
 
 
 def test_constellation_refuses_float32():
-    # the port solves in f64 only, as its stream does
+    # f32 is accepted since the constellation solves in the stream's dtype
+    # (tests/test_torch_dist_stream.py holds it to JAX's f32); a dtype
+    # neither package solves in is refused
     seq = (np.zeros((0, 6)), np.zeros((601, 3)))
-    with pytest.raises(NotImplementedError):
+    assert pipeline.constellation_from_sequences(
+        [5], [seq], 600, cfg=window.StreamingConfig(dtype="float32"),
+        device="cpu") == {"num_orbits": 0}
+    with pytest.raises(ValueError):
         pipeline.constellation_from_sequences(
-            [5], [seq], 600, cfg=window.StreamingConfig(dtype="float32"),
+            [5], [seq], 600, cfg=window.StreamingConfig(dtype="float16"),
             device="cpu")
 
 

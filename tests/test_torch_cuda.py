@@ -39,9 +39,14 @@ count one launch a call.
 
 K2 against its plain twin at the long arc's shape (2168 knots, D=4):
 relative 1e-12 in f64 (the same products summed in another order), 1e-5
-with f32=True or f32 inputs (f32 sums of 8 rows).  One arc-sharded LM step
+with f32=True or f32 inputs (f32 sums of 8 rows); the same at D from 1 to
+256 (its rows staged 64 slots at a time past 64).  One arc-sharded LM step
 on the card (K2, Thomas and the SPIKE reduction) against the CPU: states
-relative 1e-9, as the single-chip step above.
+relative 1e-9, as the single-chip step above; the sharded window solver
+with a prior (8 shards) run to max_iters on a projected problem likewise
+(the problem checked well conditioned on the CPU).  The early stop's
+host loop on CUDA tensors stops each orbit of a scripted batch where the
+CPU's does.
 """
 import functools
 
@@ -628,6 +633,25 @@ def test_normal_eq_ragged_shapes(N, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,f32,tol", [(torch.float64, False, 1e-12),
+                                           (torch.float64, True, 1e-5),
+                                           (torch.float32, False, 1e-5)])
+@pytest.mark.parametrize("D", [1, 3, 8, 64, 65, 128, 201, 256])
+def test_normal_eq_any_d(D, dtype, f32, tol):
+    """Budgets past one staged chunk of 64 slots (the sharded stream's
+    d_pad is a power of two of the busiest knot): 65 and 201 leave a
+    ragged last chunk at an odd offset; an odd N misaligns every other
+    knot's rows."""
+    dev = _cuda()
+    args = [torch.as_tensor(a, dtype=dtype, device=dev)
+            for a in _k2_case(np.random.default_rng(D), 301, D)]
+    G, g = normal_eq.assemble_normal_eq(*args, f32=f32)
+    G_p, g_p = normal_eq.assemble_normal_eq_plain(*args, f32=f32)
+    torch.cuda.synchronize()
+    assert _rel(G, G_p) < tol and _rel(g, g_p) < tol, (D, dtype, f32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("f32", [False, True])
 def test_normal_eq_one_kernel_per_call_and_graph(f32):
     dev = _cuda()
@@ -687,3 +711,120 @@ def test_sharded_step_on_card_matches_cpu():
     (st_c, lam_c), (st_g, lam_g) = out["cpu"], out[str(dev)]
     assert torch.equal(lam_c, lam_g.cpu())
     assert _rel(st_g.cpu(), st_c) < 1e-9
+
+
+def _projected_sharded(d):
+    """One orbit of N = 8 x 8 knots over P = 8 arc shards, D = 8 slots a
+    knot: knots 10 s apart on a circular orbit, nadir attitudes, landmarks
+    below each knot, pixels projected from the true states plus 0.5 px
+    noise, the states 2 km off, a prior on the first 3 knots 0.01 km off
+    the truth (random SPD information)."""
+    from vinsat_tpu_torch.core import frames
+    from vinsat_tpu_torch.estimation import factors
+
+    rng = np.random.default_rng(12)
+    P, Nl, D = 8, 8, 8
+    N = P * Nl
+    intr = np.array([3547.85, 3547.85, 2304.0, 1296.0])
+    r, w = 6900.0, np.sqrt(398600.4418 / 6900.0 ** 3)
+    c, s = np.cos(w * 10.0 * np.arange(N)), np.sin(w * 10.0 * np.arange(N))
+    pos = r * np.stack([c, s, np.zeros(N)], axis=1)
+    vel = r * w * np.stack([-s, c, np.zeros(N)], axis=1)
+    q = frames.nadir_quaternion(torch.as_tensor(pos)).numpy()
+    gt = np.concatenate([pos, q, vel], axis=1)
+    lm = (pos[:, None] * (6378.0 / 6900.0)
+          + rng.normal(size=(N, D, 3)) * 30).reshape(N * D, 3)
+    ii = np.repeat(np.arange(N), D)
+    uv = factors.project_landmarks(
+        torch.as_tensor(gt), torch.as_tensor(lm), torch.as_tensor(ii),
+        torch.as_tensor(intr)).numpy() + rng.normal(size=(N * D, 2)) * 0.5
+    states = gt.copy()
+    states[:, :3] += rng.normal(size=(N, 3)) * 2.0
+    cum = np.zeros((N, 4))
+    cum[:, 3] = 1.0
+    pv = np.ones(N)
+    pv[-1] = 0.0
+    fields = {k: v[None] for k, v in dict(
+        states=states, gaps=np.full(N, 10.0), cum_rot=cum,
+        lm_xyz=lm.reshape(N, D, 3), uv=uv.reshape(N, D, 2),
+        conf=rng.uniform(0.8, 1.0, (N, D)), obs_valid=np.ones((N, D)),
+        pair_valid=pv, knot_valid=np.ones(N)).items()}
+    fields["intrinsics"] = intr
+    val = np.zeros((1, N))
+    val[:, :3] = 1.0
+    A = rng.normal(size=(1, N, 6, 6))
+    prop = gt[None].copy()
+    prop[..., :3] += 0.01
+    prior = (prop, A @ np.swapaxes(A, -1, -2) + 6 * np.eye(6),
+             np.tile(np.eye(3) * 100.0, (1, N, 1, 1)), val)
+    prob = sharded_ba.sharded_problem_from_numpy(fields, P, d)
+    pri = sharded_ba.ShardedPrior(*(
+        torch.as_tensor(a, device=d).reshape((1, P, Nl) + a.shape[2:])
+        for a in prior))
+    # 2 vision-only iterations, then 2 with dynamics; run to max_iters 4,
+    # the best iterate from the init phase's end (iteration 2) on
+    solve = sharded_ba.make_sharded_window_solver(
+        mesh.make_mesh(1, P, d), ba.SolverParams(num_hops=2, max_iters=4),
+        num_iters=2, init_iters=2, with_prior=True)
+    return solve, prob, pri, torch.full((1,), 1e-4, dtype=torch.float64,
+                                        device=d)
+
+
+def test_sharded_solver_case_is_well_conditioned():
+    # on the CPU, as test_batch_cases_are_well_conditioned: a 1e-15
+    # relative perturbation of the initial states must move the result far
+    # less than the card test's 1e-9
+    solve, prob, pri, lam = _projected_sharded("cpu")
+    noise = torch.as_tensor(
+        np.random.default_rng(1).standard_normal(prob.states.shape))
+    a, b = (solve(lam, prob._replace(states=s0), pri)
+            for s0 in (prob.states, prob.states * (1 + 1e-15 * noise)))
+    assert torch.equal(a[1], b[1])
+    assert _rel(b[0], a[0]) < 1e-10
+
+
+@pytest.mark.cuda
+def test_sharded_window_solver_with_prior_on_card_matches_cpu():
+    """The sharded window solver with a prior, run to max_iters with the
+    best-iterate tracker, on the card against the CPU: states and the
+    residual 1e-9 relative, λ equal."""
+    dev = _cuda()
+    out = {}
+    for d in ("cpu", dev):
+        solve, prob, pri, lam = _projected_sharded(d)
+        out[str(d)] = solve(lam, prob, pri)
+    (st_c, lam_c, res_c), (st_g, lam_g, res_g) = out["cpu"], out[str(dev)]
+    assert torch.equal(lam_c, lam_g.cpu())
+    assert _rel(st_g.cpu(), st_c) < 1e-9
+    assert _rel(res_g.cpu(), res_c) < 1e-9
+
+
+@pytest.mark.cuda
+def test_early_stop_loop_on_card_matches_cpu():
+    """The early stop's host loop on CUDA tensors (one sync a step) stops
+    each orbit where it does on the CPU: a scripted step whose λ counts
+    the iterations."""
+    dev = _cuda()
+    from vinsat_tpu_torch.estimation import window
+
+    rng = np.random.default_rng(13)
+    r = 10.0 * 0.95 ** np.arange(40)[None] * np.ones((4, 1))
+    for b in range(4):
+        flat = int(rng.integers(6, 30))
+        r[b, flat:] = r[b, flat] * (1.0 + 0.004 * rng.random(40 - flat))
+    params = ba.SolverParams(max_iters=40, conv_patience=3, conv_rtol=0.01)
+    out = {}
+    for d in ("cpu", dev):
+        t = torch.as_tensor(r, device=d)
+
+        def step_i(i, states, lam, t=t):
+            return ba.BAStep(states + 1.0, lam + 1.0,
+                             torch.zeros((4, 9, 9), dtype=t.dtype,
+                                         device=t.device), t[:, i])
+
+        out[str(d)] = window._lm_loop(
+            step_i, torch.zeros((4, 3, 10), dtype=torch.float64, device=d),
+            0.0, 2, 5, params)
+    for c, g in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(g.cpu(), c)
+    assert len(set(out["cpu"][1].tolist())) >= 2  # orbits stopped apart

@@ -295,12 +295,18 @@ def test_sharded_step_one_shard_matches_single_chip():
 
 
 def test_sharded_step_rejects_prior_and_wrong_mesh():
+    # the prior is ported (tests/test_torch_dist_stream.py holds it to
+    # JAX); one laid out over another number of shards is refused
     fields = _problem_fields(np.random.default_rng(7))
     prob = sharded_ba.sharded_problem_from_numpy(fields, N_ARC, "cpu")
-    with pytest.raises(NotImplementedError):
+    B, P, Nl = prob.gaps.shape
+    z = torch.zeros
+    with pytest.raises(ValueError):
         sharded_ba._one_orbit_iteration(
             0, torch.full((1,), 1e-4, dtype=torch.float64), prob,
-            ba.SolverParams(**PARAMS), prior=object())
+            ba.SolverParams(**PARAMS), prior=sharded_ba.ShardedPrior(
+                z(B, 1, P * Nl, 10), z(B, 1, P * Nl, 6, 6),
+                z(B, 1, P * Nl, 3, 3), z(B, 1, P * Nl)))
     step = sharded_ba.make_sharded_ba_step(mesh.make_mesh(1, 2, "cpu"))
     with pytest.raises(ValueError):
         step(0, torch.full((1,), 1e-4, dtype=torch.float64), prob)

@@ -192,3 +192,24 @@ def test_config3_matches_jax(monkeypatch):
     assert out["matcher_max_d2"] == float(fx["c3_matcher_d2"].max())
     assert ate.time_to_threshold(fx["c3_hybrid_errors"],
                                  fx["c3_hybrid_times"]) is not None
+
+
+def test_main_picks_the_solve_dtype_from_the_device(monkeypatch, capsys):
+    # as the JAX runner's x64 rule: configs 2, 4 and 5 take f64 on the CPU
+    # (f32 on the card); configs 1 and 3 take no dtype
+    calls = {}
+
+    def runner(k):
+        def run(duration, device=None, **kw):
+            calls[k] = (duration, str(device), kw)
+            return {"config": k}
+        return run
+
+    monkeypatch.setattr(run_configs, "RUNNERS",
+                        {k: runner(k) for k in run_configs.RUNNERS})
+    run_configs.main(["all", "--duration", "600", "--device", "cpu"])
+    assert calls == {k: (600, "cpu", {"dtype": "float64"}
+                         if k in ("2", "4", "5") else {})
+                     for k in ("1", "2", "3", "4", "5")}
+    assert capsys.readouterr().out.splitlines() == [
+        f'{{"config": "{k}"}}' for k in ("1", "2", "3", "4", "5")]

@@ -19,7 +19,7 @@ from vinsat_tpu.estimation import ingest as jingest
 from vinsat_tpu.estimation import window as jwindow
 from vinsat_tpu.evalx import ate as jate
 from vinsat_tpu_torch import pipeline
-from vinsat_tpu_torch.estimation import ba, ingest, window
+from vinsat_tpu_torch.estimation import ingest, window
 from vinsat_tpu_torch.evalx import ate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,23 +76,23 @@ def test_ate_matches_jax():
 
 
 def test_unported_modes_raise():
-    """NEES tracking, auto-calibration, the residual-gated early stop and
-    checkpoints stay unported and raise; so does the constellation in
-    f32."""
+    """Every stream mode of the JAX package's StreamingConfig is ported
+    (NEES tracking, auto-calibration, checkpoints and the early stop ran
+    NotImplementedError before; tests/test_torch_calibration.py,
+    test_torch_checkpoint.py and test_torch_early_stop.py hold them to
+    JAX), and the constellation solves in f32; what stays refused is a
+    dtype neither package solves in."""
     seq = _runs()[0]
-    args = (seq.det_rows, seq.orbit_pos_eci_km)
-    for kw, call in ((dict(track_nees=True), {}),
-                     (dict(auto_calibrate=True), {}),
-                     ({}, dict(solver=ba.SolverParams(conv_patience=5))),
-                     ({}, dict(resume_from="stream.w0.npz")),
-                     ({}, dict(checkpoint_path="stream"))):
-        with pytest.raises(NotImplementedError):
-            window.stream_orbit(*args, cfg=window.StreamingConfig(**kw),
-                                device="cpu", **call)
-    with pytest.raises(NotImplementedError):
-        pipeline.constellation_from_sequences(
-            [1], [seq], 3600, cfg=window.StreamingConfig(dtype="float32"),
-            device="cpu")
+    for kw in (dict(track_nees=True), dict(auto_calibrate=True),
+               dict(marginalize=True, use_prior=True), dict(dtype="float32")):
+        window._check_supported(window.StreamingConfig(**kw))
+    bad = window.StreamingConfig(dtype="float16")
+    with pytest.raises(ValueError):
+        window.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km, cfg=bad,
+                            device="cpu")
+    with pytest.raises(ValueError):
+        pipeline.constellation_from_sequences([1], [seq], 3600, cfg=bad,
+                                              device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -101,7 +101,10 @@ def test_port_imports_no_jax():
             "vinsat_tpu_torch.kernels.matching, "
             "vinsat_tpu_torch.run_configs, "
             "vinsat_tpu_torch.estimation.ekf, "
-            "vinsat_tpu_torch.estimation.hybrid; "
+            "vinsat_tpu_torch.estimation.hybrid, "
+            "vinsat_tpu_torch.dist.stream, "
+            "vinsat_tpu_torch.evalx.calibration, "
+            "vinsat_tpu_torch.utils.checkpoint; "
             "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', "
             "'vinsat_tpu.')) or m == 'vinsat_tpu' for m in sys.modules)))")
     env = dict(os.environ, PYTHONPATH=ROOT)

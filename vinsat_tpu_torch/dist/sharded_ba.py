@@ -18,6 +18,11 @@ as dist/mesh.py operations along the arc dimension:
   * the SPIKE solve of dist/tridiag.
 JAX's vmaps over orbits and over the K λ candidates become leading
 dimensions; the λ candidates (K, B) come first.
+
+An optional per-knot marginal prior (`ShardedPrior`, the BA_reg factor of
+the bounded stream's anchor) is block-diagonal in knots and needs no
+communication.  `make_sharded_window_solver` runs a whole window's LM
+chain on the mesh: the solver behind the sharded stream (dist/stream).
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ from vinsat_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from vinsat_tpu_torch.core import quat
 from vinsat_tpu_torch.dist import mesh as mesh_mod
 from vinsat_tpu_torch.dist.tridiag import _shard_body
-from vinsat_tpu_torch.estimation import factors
-from vinsat_tpu_torch.estimation.ba import SolverParams
+from vinsat_tpu_torch.estimation import factors, window
+from vinsat_tpu_torch.estimation.ba import BAStep, SolverParams
 from vinsat_tpu_torch.kernels.normal_eq import assemble_normal_eq
 
 
@@ -60,6 +65,19 @@ class ShardedProblem(NamedTuple):
     pair_valid: torch.Tensor
     intrinsics: torch.Tensor
     knot_valid: Optional[torch.Tensor] = None
+
+
+class ShardedPrior(NamedTuple):
+    """Per-knot marginal prior of the sharded BA_reg path (ba.PriorState
+    laid out like ShardedProblem).  Knots without a prior carry valid = 0.
+
+    prop_states (B, P, Nl, 10); H_state (B, P, Nl, 6, 6);
+    H_rot (B, P, Nl, 3, 3); valid (B, P, Nl)."""
+
+    prop_states: torch.Tensor
+    H_state: torch.Tensor
+    H_rot: torch.Tensor
+    valid: torch.Tensor
 
 
 def sharded_problem_from_numpy(fields: Mapping[str, np.ndarray], n_arc: int,
@@ -153,15 +171,16 @@ def _schedule(sched_iter, dtype, params: SolverParams):
 
 def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
                          params: SolverParams, initialize: float = 0.0,
-                         use_pallas_assembly: bool = False, prior=None):
+                         use_pallas_assembly: bool = False,
+                         prior: Optional[ShardedPrior] = None):
     """One LM iteration of every orbit of `prob` (all B at once, each over
     its P arc shards).  lamda (B,).  `use_pallas_assembly` keeps the JAX
     flag's meaning: kernel K2 assembles in f32 and casts back; otherwise K2
-    assembles in the problem's dtype.  Returns (states_new (B, P, Nl, 10),
-    lam_next (B,), accepted trial residual (B,))."""
-    if prior is not None:
-        raise NotImplementedError(
-            "the sharded prior (BA_reg) factor is not ported yet")
+    assembles in the problem's dtype.  `prior` adds the BA_reg prior factor
+    (factors.prior_factor, valid = prior.valid * knot_valid); knot_valid
+    enters only the prior's residual-mean denominator, as in the JAX step.
+    Returns (states_new (B, P, Nl, 10), lam_next (B,), accepted trial
+    residual (B,))."""
     states = prob.states
     dtype, dev = states.dtype, states.device
     B, P, Nl = states.shape[:3]
@@ -175,6 +194,24 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
 
     def obs_residual(uv_est):
         return (prob.uv - uv_est) * ov[..., None]
+
+    kv = (prob.knot_valid if prob.knot_valid is not None
+          else torch.ones_like(prob.gaps))
+    if prior is not None:
+        if prior.valid.shape != (B, P, Nl):
+            raise ValueError(f"prior laid out {tuple(prior.valid.shape)}, "
+                             f"the problem {(B, P, Nl)}")
+        p_fields = (prior.prop_states.reshape(BPN, 10),
+                    prior.H_state.reshape(BPN, 6, 6),
+                    prior.H_rot.reshape(BPN, 3, 3))
+        p_valid = (prior.valid * kv).reshape(BPN)
+
+    def prior_at(st):
+        """The prior factor at states (..., B, P, Nl, 10): block-diagonal,
+        so evaluated over the B·P·Nl knots flattened."""
+        lead = st.shape[:-4]
+        return factors.prior_factor(st.reshape(lead + (BPN, 10)), *p_fields,
+                                    1.0, 1.0, valid=p_valid)
 
     rp = factors.reprojection_factor(states.reshape(BPN, 10), lm_flat, ii,
                                      intr)
@@ -217,6 +254,11 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
         f32=use_pallas_assembly)
     D_blk = G_obs.view(B, P, Nl, 9, 9) + sigma * (At @ A)
     D_blk = D_blk + sigma * dyn.Hq_diag[..., :-1, :, :]
+    # the prior factor (block-diagonal: local to each knot)
+    pf = None if prior is None else prior_at(states)
+    if pf is not None:
+        D_blk = D_blk + (pf.Jp.transpose(-1, -2) @ pf.Jp
+                         + pf.Hq_diag).view(B, P, Nl, 9, 9)
     # BᵀB belongs to knot t+1: local for t < Nl-1, the right neighbour's
     # first knot for the boundary pair
     BtB = sigma * (Bt @ Bm)
@@ -235,20 +277,29 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
     qgrad = dyn.qgrad[..., :-1, :].clone()
     qgrad[..., 0, :] += mesh_mod.push_right(dyn.qgrad[..., -1, :], dim=-2)
     JTr = g_obs.view(B, P, Nl, 9) - sigma * JfT_r - sigma * qgrad
+    if pf is not None:
+        JTr = (JTr - (pf.Jp.transpose(-1, -2) @ pf.res[..., :6, None])[
+            ..., 0].view(B, P, Nl, 9) - pf.qgrad.view(B, P, Nl, 9))
 
     # --- residual means (global over each orbit's shards) -------------------
     # pred_dim 6 in the vision-only init, 7 otherwise (the quat residual)
     pred_dim = 7.0 if dyn_on > 0 else 6.0
-    n_all = mesh_mod.psum(_local_sum(2.0 * ov, 2), dim=-1) + mesh_mod.psum(
-        pred_dim * _local_sum(pv, 1), dim=-1)
+    n_obs = mesh_mod.psum(_local_sum(2.0 * ov, 2), dim=-1)
+    if pf is not None:
+        n_obs = n_obs + mesh_mod.psum(7.0 * _local_sum(kv, 1), dim=-1)
+    n_all = n_obs + mesh_mod.psum(pred_dim * _local_sum(pv, 1), dim=-1)
 
-    def global_mean_res(r_o, r_p):
+    def global_mean_res(r_o, r_p, pf_=None):
         so = mesh_mod.psum(_local_sum(r_o.abs() * ov[..., None], 3), dim=-1)
+        if pf_ is not None:
+            r_pri = pf_.res.view(pf_.res.shape[:-2] + (B, P, Nl, 7))
+            so = so + mesh_mod.psum(
+                _local_sum(r_pri.abs() * kv[..., None], 2), dim=-1)
         sp = mesh_mod.psum(_local_sum(r_p.abs() * sqrt_sigma, 2), dim=-1)
         return ((so + sp) / torch.clamp(n_all, min=1.0))[..., 0]
 
     r_pred_full = torch.cat([res_pv, dyn.res_q[..., None]], dim=-1)
-    init_residual = global_mean_res(r_obs, r_pred_full)  # (B,)
+    init_residual = global_mean_res(r_obs, r_pred_full, pf)  # (B,)
 
     eye = torch.eye(9, dtype=dtype, device=dev)
 
@@ -271,7 +322,8 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
             num_hops=params.num_hops, max_substep=params.max_substep,
             with_jacobian=False)
         r_p = torch.cat([d1.res_pv, d1.res_q[..., None]], dim=-1)
-        return global_mean_res(r_o * w[..., None], r_p)
+        return global_mean_res(r_o * w[..., None], r_p,
+                               None if prior is None else prior_at(states_new))
 
     def solve_with(lamdas):
         # symmetric Jacobi scaling for f32 conditioning; the boundary U
@@ -310,6 +362,15 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
     return states_new, lam_next, trials.gather(0, j[None])[0]
 
 
+def _check_on_mesh(mesh: mesh_mod.Mesh, prob: ShardedProblem) -> None:
+    if prob.states.shape[1] != mesh.n_arc:
+        raise ValueError(f"problem has {prob.states.shape[1]} arc shards, "
+                         f"the mesh {mesh.n_arc}")
+    if prob.states.device.type != mesh.device.type:
+        raise ValueError(f"problem on {prob.states.device}, mesh on "
+                         f"{mesh.device}")
+
+
 def make_sharded_ba_step(mesh: mesh_mod.Mesh,
                          params: SolverParams = SolverParams(),
                          use_pallas_assembly: bool = False):
@@ -319,15 +380,66 @@ def make_sharded_ba_step(mesh: mesh_mod.Mesh,
     use_pallas_assembly runs kernel K2 in f32 (the JAX flag's meaning)."""
 
     def step(sched_iter, lamda_b, prob: ShardedProblem, initialize=0.0):
-        if prob.states.shape[1] != mesh.n_arc:
-            raise ValueError(f"problem has {prob.states.shape[1]} arc shards,"
-                             f" the mesh {mesh.n_arc}")
-        if prob.states.device.type != mesh.device.type:
-            raise ValueError(f"problem on {prob.states.device}, mesh on "
-                             f"{mesh.device}")
+        _check_on_mesh(mesh, prob)
         st, lam, _ = _one_orbit_iteration(
             sched_iter, lamda_b, prob, params, initialize=initialize,
             use_pallas_assembly=use_pallas_assembly)
         return st, lam
 
     return step
+
+
+def make_sharded_window_solver(mesh: mesh_mod.Mesh,
+                               params: SolverParams = SolverParams(),
+                               num_iters: int = 20, init_iters: int = 0,
+                               with_prior: bool = False):
+    """A whole window's LM chain on the mesh (the sharded analog of
+    window.solve_window / solve_window_reg):
+
+      * params.max_iters <= num_iters: exactly num_iters iterations,
+        returning the LAST iterate;
+      * params.max_iters > num_iters: max_iters iterations, returning each
+        orbit's BEST-residual iterate; the tracker resets when the
+        vision-only init phase ends (i == init_iters).
+
+    The first init_iters iterations are vision-only; the schedule index is
+    the iteration.  with_prior adds the BA_reg prior factor; a solve called
+    without a ShardedPrior then takes an all-invalid one (as the JAX solver
+    builds it), and without with_prior a prior is ignored.
+
+    Returns solve(lamda0 (B,), prob, prior=None) -> (states (B, P, Nl, 10),
+    lamda (B,), mean_residual (B,)).  P must be the mesh's arc size: a 1x1
+    mesh solves the window on one shard.  The chain is window._lm_loop's
+    without its early stop (the JAX package's sharded chain has none)."""
+    # conv_patience >= the extra budget turns _lm_loop's early stop off
+    loop_params = params._replace(conv_patience=params.max_iters)
+
+    def solve(lamda_b, prob: ShardedProblem,
+              prior: Optional[ShardedPrior] = None):
+        _check_on_mesh(mesh, prob)
+        st = prob.states
+        B, P, Nl = st.shape[:3]
+        if not with_prior:
+            prior = None
+        elif prior is None:
+            prop = st.new_zeros((B, P, Nl, 10))
+            prop[..., 6] = 1.0  # identity quaternions
+            prior = ShardedPrior(prop, st.new_zeros((B, P, Nl, 6, 6)),
+                                 st.new_zeros((B, P, Nl, 3, 3)),
+                                 st.new_zeros((B, P, Nl)))
+        no_h = st.new_zeros((B, 9, 9))
+
+        def step_i(i, states, lam):
+            # _lm_loop's orbit axis leads (B, N, 10); the chain keeps no
+            # Hessian
+            st_n, lam_n, res = _one_orbit_iteration(
+                i, lam, prob._replace(states=states.reshape(B, P, Nl, 10)),
+                params, initialize=float(i < init_iters), prior=prior)
+            return BAStep(st_n.reshape(B, P * Nl, 10), lam_n, no_h, res)
+
+        st, lam, _, res = window._lm_loop(
+            step_i, st.reshape(B, P * Nl, 10), lamda_b.to(st.dtype),
+            init_iters, num_iters, loop_params)
+        return st.reshape(B, P, Nl, 10), lam, res
+
+    return solve

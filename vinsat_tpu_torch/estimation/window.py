@@ -18,13 +18,18 @@ package's recovery ladder (damped retry, then the window solved again in
 f64), window 0's init phase in f64 (`window0_init_f64`), and its modes:
 the window-marginal prior on new knots (`use_prior`, `solve_window_reg`),
 bounded windows of [anchor] + new knots carrying the terminal marginal
-information (`marginalize`) and the EKF+BA hybrid (`use_ekf_hybrid`).
-Conditioning always runs in f64; a float32 stream solves its windows in
-f32 and its f64 escapes on the same device (the JAX package sends them
-to the host CPU).  Not ported: the fused async "fast" path (it hides TPU
-dispatch latency and is bit-identical to the synchronous path); NEES
-tracking and auto-calibration, checkpoints and the residual-gated early
-stop raise NotImplementedError.
+information (`marginalize`) and the EKF+BA hybrid (`use_ekf_hybrid`);
+NEES tracking of each window's terminal marginal (`track_nees`) and the
+anchor prior's inflation calibrated from it (`auto_calibrate`); a
+checkpoint after every window and the resume from one
+(`checkpoint_path`, `resume_from`; utils/checkpoint's npz, the JAX
+package's keys); the opt-in residual-gated early stop
+(SolverParams.conv_patience, `_lm_loop`).  Conditioning always runs in
+f64; a float32 stream solves its windows in f32 and its f64 escapes on
+the same device (the JAX package sends them to the host CPU).  Not
+ported: the fused async "fast" path (it hides TPU dispatch latency and is
+bit-identical to the synchronous path) and the stream's metrics logger
+and stage timer.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ from vinsat_tpu_torch.config import (DEFAULT_DEVICE, REFERENCE_INTRINSICS,
                                      resolve_device)
 from vinsat_tpu_torch.core import dynamics, quat
 from vinsat_tpu_torch.estimation import ba, factors, hybrid, ingest, refine
+from vinsat_tpu_torch.evalx import calibration
+from vinsat_tpu_torch.utils import checkpoint
 
 
 def bucket(n: int, step: int = 16, minimum: int = 16) -> int:
@@ -54,15 +61,25 @@ def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
     """Run the per-window LM iteration chain.
 
     params.max_iters <= num_iters: exactly num_iters iterations, returning
-    the LAST iterate.  Otherwise run max_iters iterations and return the
-    BEST-residual iterate (the tracker resets when the vision-only init
-    phase ends).  The JAX package's opt-in residual-gated early stop
-    (conv_patience < the extra budget) is not ported.
+    the LAST iterate.  Otherwise the loop runs past num_iters and returns
+    the BEST-residual iterate (the tracker resets when the vision-only init
+    phase ends, at i == init_iters):
+
+      * conv_patience >= the extra budget (the default): always max_iters
+        iterations;
+      * conv_patience < the extra budget: the residual-gated early stop —
+        iterate while i < num_iters, or while i < max_iters and the best
+        residual improved by more than conv_rtol (against the best from
+        before the iteration) within the last conv_patience iterations.
+        The JAX package's while_loop is a host loop here that reads the
+        stop condition once an iteration (one sync each).
 
     step_i(i, states, lam) -> BAStep.  Returns (states, lamda,
     last_hessian, mean_residual).  states0 (B, N, 10) runs B orbits at once
-    (lamda_init a float or (B,)): λ and the best-iterate tracking are then
-    per orbit, as under the JAX package's vmap.
+    (lamda_init a float or (B,)): λ, the best-iterate tracking and the
+    early stop are then per orbit, as under the JAX package's vmap — an
+    orbit that has stopped keeps its carry while the others iterate, and
+    the loop ends when every orbit has stopped.
     """
     dtype, dev = states0.dtype, states0.device
     orbits = states0.shape[:-2]
@@ -79,21 +96,37 @@ def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
             states, lam, last_h, res = step_i(i, states, lam)
         return states, lam, last_h, res
 
-    if params.conv_patience < params.max_iters - num_iters:
-        raise NotImplementedError(
-            "residual-gated early stop (conv_patience) is not ported")
+    early_stop = params.conv_patience < params.max_iters - num_iters
     best_states, best_h = states0, last_h
     best_res = torch.full(orbits, math.inf, dtype=dtype, device=dev)
+    since = torch.zeros(orbits, dtype=torch.int64, device=dev)
     for i in range(params.max_iters):
-        states, lam, last_h, res = step_i(i, states, lam)
+        active = None  # every orbit iterates
+        if early_stop and i >= num_iters:
+            active = since < params.conv_patience
+            if not bool(active.any()):
+                break
+        states_n, lam_n, last_h, res = step_i(i, states, lam)
         if i == init_iters:
-            best_states, best_h, best_res = states, last_h, res
+            take = torch.ones_like(res, dtype=torch.bool)
         else:
             take = res < best_res
-            best_states = torch.where(ba._along(take, states), states,
-                                      best_states)
-            best_h = torch.where(ba._along(take, last_h), last_h, best_h)
-            best_res = torch.where(take, res, best_res)
+        if early_stop:
+            improved = res < best_res * (1.0 - params.conv_rtol)
+            since_n = torch.where((i == init_iters) | improved,
+                                  torch.zeros_like(since), since + 1)
+            if active is not None:
+                take = take & active
+                since_n = torch.where(active, since_n, since)
+                states_n = torch.where(ba._along(active, states_n), states_n,
+                                       states)
+                lam_n = torch.where(active, lam_n, lam)
+            since = since_n
+        states, lam = states_n, lam_n
+        best_states = torch.where(ba._along(take, states), states,
+                                  best_states)
+        best_h = torch.where(ba._along(take, last_h), last_h, best_h)
+        best_res = torch.where(take, res, best_res)
     return best_states, lam, best_h, best_res
 
 
@@ -177,8 +210,8 @@ class StreamingResult(NamedTuple):
 class StreamingConfig(NamedTuple):
     """The JAX StreamingConfig, field for field (meaning and measured
     defaults are documented there).  dtype "float64" or "float32";
-    track_nees / auto_calibrate raise NotImplementedError; recover_f64 and
-    window0_init_f64 are no-ops on a float64 stream, as in JAX."""
+    recover_f64 and window0_init_f64 are no-ops on a float64 stream, as in
+    JAX."""
 
     num_iters: int = 20
     init_iters: int = 10
@@ -360,16 +393,10 @@ def prepare_stream(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
-def _check_supported(cfg: StreamingConfig, checkpoint_path=None,
-                     resume_from=None) -> None:
+def _check_supported(cfg: StreamingConfig) -> None:
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"StreamingConfig.dtype must be one of "
                          f"{sorted(_DTYPES)}, got {cfg.dtype!r}")
-    for name in ("track_nees", "auto_calibrate"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"StreamingConfig.{name} is not ported")
-    if checkpoint_path is not None or resume_from is not None:
-        raise NotImplementedError("stream checkpoints are not ported")
 
 
 def compose_prior_blocks(H9: np.ndarray):
@@ -451,11 +478,18 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
     det_rows: (M, 6) [frame, lon, lat, xc, yc, conf]; orbit_pos_eci_km:
     (T, 3) GT 1 Hz ECI positions in km.  Returns the recorded errors/times
     for the time-to-<5km evaluation.  Conditioning runs in f64 whatever
-    cfg.dtype; the windows are solved in cfg.dtype.  checkpoint_path /
-    resume_from (the JAX package's stream checkpoints) raise
-    NotImplementedError.
+    cfg.dtype; the windows are solved in cfg.dtype.
+
+    checkpoint_path: after every window, its state is written to
+    `{checkpoint_path}.w{w}.npz` (utils/checkpoint).  resume_from: such a
+    file, from either package; the windows up to and including its own are
+    restored (states, trailing Hessian, λ, recorded errors, the bounded
+    mode's anchor information and the NEES history) instead of solved, and
+    the run goes on from the next window with the results of an
+    uninterrupted one (the window split and the initial-noise draw are
+    deterministic in det_rows / seed).
     """
-    _check_supported(cfg, checkpoint_path, resume_from)
+    _check_supported(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.dtype]
 
@@ -507,11 +541,41 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
             max_iters=min(solver.max_iters, max(cfg.max_iters_later,
                                                 cfg.num_iters + 1)))
     bounded = cfg.marginalize or cfg.use_ekf_hybrid
+    track = cfg.track_nees or (cfg.auto_calibrate and bounded)
     n_trips = 0
+    # NEES samples: each window's terminal marginal, estimate and GT
+    nees_infos: List[np.ndarray] = []
+    nees_est: List[np.ndarray] = []
+    nees_gt: List[np.ndarray] = []
+
+    start_w = 0
+    if resume_from is not None:
+        ck = checkpoint.load(resume_from)
+        start_w = ck["window_idx"] + 1
+        cur_states = ck["states"]
+        last_hessian = ck["last_hessian"]
+        errors, times = [ck["errors"]], [ck["times"]]
+        t_prev = len(ck["knot_times"])
+        if "marg_info" in ck:
+            marg_info = np.asarray(ck["marg_info"])
+            i_prev = int(ck["i_prev"])
+        if "nees_infos" in ck:
+            # auto_calibrate derives the anchor's inflation from this
+            # history, so a resumed run needs it to match an unbroken one
+            nees_infos = list(np.asarray(ck["nees_infos"]))
+            nees_est = list(np.asarray(ck["nees_est"]))
+            nees_gt = list(np.asarray(ck["nees_gt"]))
 
     def anchor_info(H9: np.ndarray) -> np.ndarray:
-        """The anchor prior's information: the static covariance floors
-        (the JAX package's auto_calibrate branch is not ported)."""
+        """The anchor prior's information: inflated by the measured NEES
+        factors (each at least 1) once auto-calibration has enough
+        windows, else the static covariance floors."""
+        if (cfg.auto_calibrate
+                and len(nees_infos) >= cfg.auto_calibrate_min_windows):
+            c = calibration.calibrate_inflation(nees_infos, nees_est,
+                                                nees_gt)
+            return calibration.apply_inflation(
+                H9, {k: max(v, 1.0) for k, v in c.items()})
         return ba.inflate_info(H9, cfg.prior_pos_floor_km,
                                cfg.prior_rot_floor, cfg.prior_vel_floor)
 
@@ -578,6 +642,12 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                 torch.full((), math.nan, dtype=dtype, device=device))
 
     for w, (t_final, i_final, seq_end) in enumerate(windows):
+        if w < start_w:
+            # restored from the checkpoint: only the final window's tail
+            # (recorded after its checkpoint was written) remains
+            if seq_end and t_prev < len(knot_t):
+                record_tail(t_prev)
+            continue
         # the reduced budget needs >= 2 passes in the solved span; bounded
         # windows are anchor + one pass and always take the full budget
         solver_w = solver
@@ -678,7 +748,7 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                 lambda l0: solve_window_reg(st0, prob, prior, l0,
                                             cfg.num_iters, solver_w),
                 st0, lamda, (st0, prob, prior, 0, solver_w))
-        out_states, _, last_h, _ = out
+        out_states, lam_w, last_h, _ = out
         out_np = out_states[:t_final - first].cpu().numpy()
         if sub_anchor is None:
             cur_states = out_np
@@ -687,20 +757,50 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
         last_hessian = last_h.cpu().numpy()
         t_prev, i_prev = t_final, i_final
 
-        if bounded:
-            # the terminal marginal information for the next window's
-            # anchor prior (Schur complement over the window just solved)
+        if bounded or track:
+            # the terminal marginal information of the window just solved
+            # (Schur complement): the next window's anchor prior, and the
+            # NEES sample
             extra = np.zeros((n_pad, 9, 9))
             if extra_diag0 is not None:
                 extra[0] = extra_diag0
-            marg_info = ba.terminal_marginal_info(
+            info_w = ba.terminal_marginal_info(
                 out_states, prob, solver_w, extra_diag=t(extra)
             ).cpu().numpy().astype(np.float64)
+            if bounded:
+                marg_info = info_w
+            if track:
+                nees_infos.append(info_w)
+                nees_est.append(cur_states[-1].copy())
+                gt_t = gt.states[t_final - 1].copy()
+                # gt.states' knot velocities are forward differences, and
+                # the sequence's last knot has none: the central
+                # difference of the 1 Hz GT orbit instead
+                ti = int(knot_t[t_final - 1])
+                lo = max(ti - 1, 0)
+                hi = min(ti + 1, orbit_pos_eci_km.shape[0] - 1)
+                gt_t[7:10] = ((orbit_pos_eci_km[hi] - orbit_pos_eci_km[lo])
+                              / max(hi - lo, 1))
+                nees_gt.append(gt_t)
 
         errors.append(np.linalg.norm(
             cur_states[-1:, :3] - gt.states[t_final - 1:t_final, :3],
             axis=-1))
         times.append(knot_t[t_final - 1:t_final])
+
+        if checkpoint_path is not None:
+            ck_extra = ({} if marg_info is None
+                        else {"marg_info": marg_info,
+                              "i_prev": np.array(i_prev)})
+            if track and nees_infos:
+                ck_extra.update(nees_infos=np.asarray(nees_infos),
+                                nees_est=np.asarray(nees_est),
+                                nees_gt=np.asarray(nees_gt))
+            checkpoint.save(
+                f"{checkpoint_path}.w{w}.npz", states=cur_states,
+                last_hessian=last_hessian, window_idx=w, lamda=float(lam_w),
+                knot_times=knot_t[:t_final], errors=np.concatenate(errors),
+                times=np.concatenate(times), extra=ck_extra)
 
         if seq_end and t_final < len(knot_t):
             record_tail(t_final)
@@ -711,5 +811,8 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
         first_detection=first_detection,
         final_states=cur_states,
         knot_times=knot_t[:t_prev],
+        window_infos=np.asarray(nees_infos) if nees_infos else None,
+        window_est=np.asarray(nees_est) if nees_est else None,
+        window_gt=np.asarray(nees_gt) if nees_gt else None,
         recovery_trips=n_trips,
     )

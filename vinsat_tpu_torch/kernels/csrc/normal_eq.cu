@@ -38,6 +38,10 @@
 // 2D rows in a register; the output-to-(i, j) map is worked out once per
 // lane without a divide.  D is a template parameter for the long arc's
 // D = 4 (loops unrolled), with a runtime-D instantiation for the rest.
+// The runtime-D path stages a knot's rows D_CHUNK slots at a time (a slot
+// of 21 x 64 values, 43 KiB for 4 warps in f64, under the 48 KiB default),
+// each lane carrying its sums in registers from chunk to chunk, so that any
+// D runs and the rows are still summed in order d = 0..D-1.
 // The TPU layout (knots tiled by 8 on sublanes, G and g packed into a
 // 128-lane row) does not carry over.
 
@@ -47,6 +51,7 @@
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 4;
+constexpr int D_CHUNK = 64;  // observation slots a warp stages at a time
 constexpr int N_SYM = 45;  // entries i <= j of the 9 x 9 G
 constexpr int N_OUT = 54;  // then the 9 of g
 
@@ -59,7 +64,8 @@ template <> struct Vec2<float> { using type = float2; };
 template <typename In, typename Acc>
 __device__ __forceinline__ void stage(const In* __restrict__ src, Acc* dst,
                                       int count, bool pairs, int lane) {
-  if (pairs && (count & 1) == 0) {
+  if (pairs && (count & 1) == 0 &&
+      ((uintptr_t)src % (2 * sizeof(In))) == 0) {
     using V = typename Vec2<In>::type;
     const V* s = reinterpret_cast<const V*>(src);
 #pragma unroll
@@ -107,17 +113,16 @@ __device__ __forceinline__ void stage_all(const In* __restrict__ J,
   }
 }
 
-// One output of the knot: G[i][j] (j < 9) or g[i] (j = 9), summed over
-// the R rows of the warp's slot.
+// One output of the knot: G[i][j] (j < 9) or g[i] (j = 9), the R rows of
+// the warp's slot (its dc observation slots) added to acc in order.
 template <typename Acc, int DT>
 __device__ __forceinline__ Acc reduce_one(const Acc* Js, const Acc* rs,
                                           const Acc* ws, int i, int j,
-                                          int D) {
-  const int R = DT > 0 ? 2 * DT : 2 * D;
+                                          int dc, Acc acc) {
+  const int R = DT > 0 ? 2 * DT : 2 * dc;
   // column j of J, or the residuals for g
   const Acc* col = j < 9 ? Js + j : rs;
   const int stride = j < 9 ? 9 : 1;
-  Acc acc = Acc(0);
 #pragma unroll
   for (int row = 0; row < R; ++row) {
     const Acc jw = Js[row * 9 + i] * ws[row >> 1];
@@ -133,48 +138,68 @@ __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
                      In* __restrict__ g, int64_t N, int D_rt, bool pairs) {
   extern __shared__ unsigned char smem_raw[];
   const int D = DT > 0 ? DT : D_rt;
+  // observation slots staged at a time: all of them for a compile-time D
+  const int DC = DT > 0 ? DT : (D < D_CHUNK ? D : D_CHUNK);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t n = (int64_t)blockIdx.x * WARPS_PER_BLOCK + warp;
   if (n >= N) return;  // warp-uniform
-  const int slot = 21 * D;  // J (18D), r (2D), w (D)
+  const int slot = 21 * DC;  // J (18 DC), r (2 DC), w (DC)
   Acc* Js = reinterpret_cast<Acc*>(smem_raw) + warp * slot;
-  Acc* rs = Js + 18 * D;
-  Acc* ws = rs + 2 * D;
-  bool staged = false;
-  if constexpr (DT > 0) {
-    if (pairs) {
-      stage_all<In, Acc, DT>(J, r, w, Js, n, lane);
-      staged = true;
-    }
-  }
-  if (!staged) {
-    stage(J + n * 18 * D, Js, 18 * D, pairs, lane);
-    stage(r + n * 2 * D, rs, 2 * D, pairs, lane);
-    stage(w + n * D, ws, D, pairs, lane);
-  }
-  __syncwarp();
+  Acc* rs = Js + 18 * DC;
+  Acc* ws = rs + 2 * DC;
 
   // this lane's outputs: q = lane (always in G) and q = lane + 32; q < 45
   // is G's upper-triangle entry q (row-major), then g's 9
+  int oi[2], oj[2];
+  Acc acc[2] = {Acc(0), Acc(0)};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = lane + 32 * h;
-    if (q >= N_OUT) break;
-    int i, j;
     if (q < N_SYM) {  // walk the upper triangle's rows of 9, 8, ..., 1
       int rem = q;
-      i = 0;
+      int i = 0;
       while (rem >= 9 - i) {
         rem -= 9 - i;
         ++i;
       }
-      j = i + rem;
+      oi[h] = i;
+      oj[h] = i + rem;
     } else {
-      i = q - N_SYM;
-      j = 9;
+      oi[h] = q - N_SYM;
+      oj[h] = 9;
     }
-    const Acc v = reduce_one<Acc, DT>(Js, rs, ws, i, j, D);
+  }
+
+  for (int d0 = 0; d0 < D; d0 += DC) {
+    const int dc = D - d0 < DC ? D - d0 : DC;
+    bool staged = false;
+    if constexpr (DT > 0) {
+      if (pairs) {
+        stage_all<In, Acc, DT>(J, r, w, Js, n, lane);
+        staged = true;
+      }
+    }
+    if (!staged) {
+      const int64_t row0 = n * D + d0;
+      stage(J + row0 * 18, Js, 18 * dc, pairs, lane);
+      stage(r + row0 * 2, rs, 2 * dc, pairs, lane);
+      stage(w + row0, ws, dc, pairs, lane);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (lane + 32 * h < N_OUT)
+        acc[h] = reduce_one<Acc, DT>(Js, rs, ws, oi[h], oj[h], dc, acc[h]);
+    }
+    __syncwarp();  // the slot is restaged by the next chunk
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (lane + 32 * h >= N_OUT) break;
+    const int i = oi[h], j = oj[h];
+    const Acc v = acc[h];
     if (j < 9) {
       G[n * 81 + i * 9 + j] = (In)v;
       if (i != j) G[n * 81 + j * 9 + i] = (In)v;
@@ -189,8 +214,8 @@ int launch(const In* J, const In* r, const In* w, In* G, In* g, int64_t N,
            int D, cudaStream_t st) {
   if (N == 0) return 0;
   if (D <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS_PER_BLOCK * 21 * D * sizeof(Acc);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int DC = D < D_CHUNK ? D : D_CHUNK;
+  const size_t smem = (size_t)WARPS_PER_BLOCK * 21 * DC * sizeof(Acc);
   const uintptr_t align = 2 * sizeof(In);
   const bool pairs = (((uintptr_t)J | (uintptr_t)r | (uintptr_t)w) %
                       align) == 0;
@@ -214,8 +239,7 @@ extern "C" {
 // float); G (N,9,9) and g (N,9) outputs of the same dtype -- all
 // contiguous device memory.  f32_sums: sum in f32 (f64 inputs are rounded
 // on load, the results stored as f64).  Launches on `stream`; returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a D the
-// shared memory cannot hold).
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for D < 1).
 int vinsat_normal_eq(const void* J, const void* r, const void* w, void* G,
                      void* g, long long N, int D, int is_f64, int f32_sums,
                      void* stream) {

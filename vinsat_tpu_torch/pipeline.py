@@ -269,14 +269,12 @@ def run_full_batch(seq, seed: int = 0, num_iters: int = 100,
     """Whole-arc optimization (BASELINE config 2, "full-batch BA"): the
     gated graph of the whole sequence as one padded window, num_iters LM
     iterations with schedule index i - init_iters, the first init_iters
-    vision-only, the sequential λ search, f64 on `device`.  Returns (final
-    knot states, knot times, GT knot states) as numpy."""
-    if cfg.dtype != "float64":
-        raise NotImplementedError(
-            f"the torch port solves the full batch in float64 only (got "
-            f"{cfg.dtype!r})")
+    vision-only, the sequential λ search, on `device`: conditioning in
+    f64, the solve in cfg.dtype.  Returns (final knot states, knot times,
+    GT knot states) as numpy."""
+    window._check_supported(cfg)
     device = resolve_device(device)
-    dtype = torch.float64
+    dtype = window._DTYPES[cfg.dtype]
     rng = np.random.default_rng(seed)
     det_rows, orbit = stream_inputs(seq)
     graph, gt = _gated(det_rows, orbit, orbit.shape[0], device)
@@ -284,8 +282,8 @@ def run_full_batch(seq, seed: int = 0, num_iters: int = 100,
     states = _noised_states(gt.states, rng, cfg, device)
     gaps = np.concatenate([np.diff(graph.time_idx), [0]]).astype(np.float64)
     cum_rot = factors.cumulative_rotations(
-        torch.as_tensor(gt.omega_full, dtype=dtype, device=device), 1.0,
-        torch.as_tensor(graph.time_idx, device=device)).cpu().numpy()
+        torch.as_tensor(gt.omega_full, dtype=torch.float64, device=device),
+        1.0, torch.as_tensor(graph.time_idx, device=device)).cpu().numpy()
     solver = ba.SolverParams(num_hops=int(np.ceil(gaps.max() / 100.0)) + 1)
     n_pad = window.bucket(N, cfg.knot_bucket)
     m_pad = window.bucket(len(graph.ii), cfg.obs_bucket, cfg.obs_bucket)
@@ -320,14 +318,13 @@ def _prepare_constellation(seeds: Sequence[int], seqs, duration_s: int,
     (position, attitude, velocity, as the JAX package draws them, so a
     skipped orbit draws nothing); then the common n_pad / m_pad buckets,
     the padded problems stacked, and SolverParams with the hops of the
-    longest gap.  None when no orbit is left."""
-    if cfg.dtype != "float64":
-        raise NotImplementedError(
-            f"the torch port solves in float64 only (got {cfg.dtype!r})")
+    longest gap.  Conditioning runs in f64 and the batch is padded (so
+    solved) in cfg.dtype.  None when no orbit is left."""
+    window._check_supported(cfg)
     device = resolve_device(device)
-    dtype = torch.float64
+    dtype = window._DTYPES[cfg.dtype]
 
-    def t(a, dt=dtype):
+    def t(a, dt=torch.float64):
         return torch.tensor(np.asarray(a), dtype=dt, device=device)
 
     rng = np.random.default_rng(0)
