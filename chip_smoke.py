@@ -165,7 +165,31 @@ Phases (each prints its lines; any failure exits non-zero):
      beside phase 7's reference step; the arc streamed (two-body + J2):
      finite, final error under 5 km; generate_constellation of 8 orbits x
      600 s as one batched rollout, equal to the 8 single rollouts within
-     1e-12.
+     1e-12;
+ 22. the imagery path (pipeline.simulate_imagery_from_draws /
+     simulate_sequence_imagery): the two JAX runs of
+     tests/data/torch_imagery_seed1.npz replayed on cuda from JAX's draws
+     and region rasters, (a) the NCC detector at 60 classes, (b) the
+     committed PatchCNN (tests/data/detector_full_snr1.npz) at 10:
+     the crops' windows within 1e-9 deg of JAX's, per-crop scores within
+     1e-5 and positions within 1e-3 px where JAX's score is above 0.3 (a)
+     or 0 (b), rows with JAX's frames, classes within 1e-9 deg, pixels
+     within 1e-3 px, confidences within 1e-5 (no JAX candidate within
+     1e-4 of the gate), streamed within 1e-4 km of JAX's errors (JAX's own
+     rows through the port's stream within 1e-6 km); TF32 off at every
+     convolution, dense layer and einsum of the detection stage; then the
+     port's own seed 1 at the entry point's defaults (600 s, stride 30,
+     60 classes), its 10800 s arc at stride 30 (final error under 5 km)
+     with the NCC detector and its 1800 s arc with the PatchCNN (min
+     error under 5 km), whose windows hold too few knots for K1, and the
+     two arcs whose streams launch K1: 1800 s at stride 10 with the NCC
+     detector (min error under 5 km) and 600 s at stride 1 with the
+     PatchCNN (the median pixel error of the rows the stream keeps, conf
+     > 0.8, under the reference's 10 px); per run the stages' seconds,
+     the µs a crop of detection, that pixel error, the peak device
+     memory (with what earlier phases hold) and K1's
+     launches; the detection stage alone under torch.profiler (device
+     busy share, the CNN's patches/s).
 Each phase prints its seconds.  The last two lines are the card's
 nvidia-smi line and the device JSON line; the kernels' JSON record comes
 before them.  Needs torch with CUDA and nvcc; imports no JAX.
@@ -192,6 +216,10 @@ MODES_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_modes_seed1.npz")
 DIST_FIXTURE = os.path.join(ROOT, "tests", "data",
                             "torch_dist_stream_seed1.npz")
 HIFI_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_hifi_seed1.npz")
+IMAGERY_FIXTURE = os.path.join(ROOT, "tests", "data",
+                               "torch_imagery_seed1.npz")
+DETECTOR_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                "detector_full_snr1.npz")
 K1_SOURCE = "vinsat_tpu_torch/kernels/csrc/tridiag_pcr.cu"
 K1_REPLACES = "vinsat_tpu/kernels/tridiag_pallas.py:157"
 K3_SOURCE = "vinsat_tpu_torch/kernels/csrc/visible_count.cu"
@@ -1202,6 +1230,275 @@ def _phase21(dev, smi, orbit_step_us: float) -> dict:
           f"at a time {wall_1:.2f} s, max rel diff {err:.3e}  [{smi}]")
     _check(tuple(con.pos_eci.shape) == (8, 601, 3) and err <= 1e-12,
            ("constellation", tuple(con.pos_eci.shape), err))
+    return out
+
+
+def _imagery_case(fx, case):
+    """(draws, rasters, kwargs) of one case of the imagery fixture."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.sim import orbits
+
+    g = lambda k: fx[f"{k}_{case}"]  # noqa: E731
+    draws = pipeline.ImageryDraws(
+        orbits.OrbitalElements(*(float(v) for v in g("oe"))),
+        np.asarray(g("q0")), np.asarray(g("w0")), int(g("db_seed")),
+        torch.as_tensor(g("templates")))
+    rasters = [g(f"raster{i}") for i in range(len(g("affine")))]
+    return draws, rasters, json.loads(str(g("kwargs")))
+
+
+@contextlib.contextmanager
+def _tf32_recording(seen):
+    """Inside the block every F.conv2d, F.linear and torch.einsum call made
+    within the imagery path's detection stage (pipeline.detect_crops)
+    appends the TF32 flags (cuDNN, cuBLAS) it ran under to `seen`."""
+    import torch
+    import torch.nn.functional as F
+    from vinsat_tpu_torch import pipeline
+
+    inside = [False]
+
+    def stage(orig, *a, **kw):
+        inside[0] = True
+        try:
+            return orig(*a, **kw)
+        finally:
+            inside[0] = False
+
+    def hook(orig, *a, **kw):
+        if inside[0]:
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+        return orig(*a, **kw)
+
+    with _patched(pipeline, "detect_crops", stage), \
+            _patched(F, "conv2d", hook), _patched(F, "linear", hook), \
+            _patched(torch, "einsum", hook):
+        yield
+
+
+def _row_px_err(seq):
+    """Pixel error of the rows the stream keeps (confidence above its 0.8
+    gate) against their landmark's true pixel (the class lon / lat
+    projected into the frame's nadir camera, f64): (median, 95th
+    percentile, max, rows over the reference's 10 px gate, rows kept).
+    Below the gate the PatchCNN's top proposal for a class absent from a
+    crop is a false row, far from its landmark."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch.sim import camera
+
+    d = seq.det_rows[seq.det_rows[:, 5] > 0.8]
+    if not len(d):
+        return (np.nan,) * 3 + (0, 0)
+    dev = seq.traj.pos_ecef.device
+    fr = torch.as_tensor(d[:, 0].astype(np.int64), device=dev)
+    lon, lat = (torch.as_tensor(d[:, i], device=dev)[:, None] for i in (1, 2))
+    uv, _ = camera.lonlat_to_pixel(
+        camera.CameraModel.from_hfov(),
+        camera.CameraPose.nadir(seq.traj.pos_ecef[fr] * 1000.0), lon, lat)
+    e = np.hypot(*(uv[:, 0].cpu().numpy() - d[:, 3:5]).T)
+    return (float(np.median(e)), float(np.percentile(e, 95)), float(e.max()),
+            int((e > 10.0).sum()), len(d))
+
+
+def _imagery_run(tag, dev, smi, sim, stream_seed=1):
+    """sim() (an imagery simulation on the card, TF32 recorded), then its
+    rows streamed: prints the stages' seconds, µs a crop, the peak device
+    memory and the stream; returns (seq, result, K1 launches, TF32 flags
+    seen)."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.evalx import ate
+    from vinsat_tpu_torch.kernels import tridiag_pcr
+
+    k1 = tridiag_pcr.block_tridiag_solve_pcr
+    seen = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with _tf32_recording(seen):
+        seq = sim()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    k1.launches = 0
+    t0 = time.time()
+    res = pipeline.run_streaming(seq, seed=stream_seed, device=dev)
+    wall_s = time.time() - t0
+    launches = k1.launches
+    c = seq.crops
+    n_crops = 0 if c is None else len(c.frames)
+    st = dict(seq.stage_s, stream=wall_s)
+    det_us = 1e6 * st.get("detection", 0.0) / max(n_crops, 1)
+    px = _row_px_err(seq)
+    e_min, e_fin = ((float(np.min(res.errors)), float(res.errors[-1]))
+                    if len(res.errors) else (float("nan"),) * 2)
+    print(f"{tag}: {len(seq.det_rows)} rows from {n_crops} crops "
+          f"{None if c is None else c.crop_hw}, simulation {wall:.2f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+          + f"), detection {det_us:.1f} µs a crop, pixel error of the "
+          f"{px[4]} rows over conf 0.8: median {px[0]:.3f} / 95% "
+          f"{px[1]:.3f} / max {px[2]:.3f} px, {px[3]} over 10 px, peak "
+          f"device memory "
+          f"{peak:.1f} MiB; stream {len(res.errors)} errors, min "
+          f"{e_min:.6f} km, final {e_fin:.6f} km, time_to_5km_s "
+          f"{ate.time_to_threshold(res.errors, res.times, 5.0)}, K1 launches "
+          f"{launches}  [{smi}]")
+    _check(len(seen) > 0 and not any(a or b for a, b in seen),
+           (tag, "TF32 inside the detection", seen[:4]))
+    return seq, res, launches, det_us, px
+
+
+def _phase22(dev, smi) -> dict:
+    """22. The imagery path: the fixture's two JAX runs replayed on the
+    card and held to JAX's detections, rows and stream; the port's own
+    arcs with both detectors."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.sim import learned_detector as ld
+
+    fx = np.load(IMAGERY_FIXTURE)
+    det = ld.load_detector(DETECTOR_FIXTURE, device=dev)
+    out = {"k1": {}}
+    for case, tag, gate in (("a", "NCC", 0.55), ("b", "PatchCNN", 0.5)):
+        draws, rasters, kw = _imagery_case(fx, case)
+        detector = det if case == "b" else None
+        seq, res, k1n, _, _ = _imagery_run(
+            f"imagery fixture {case} ({tag})", dev, smi,
+            lambda: pipeline.simulate_imagery_from_draws(
+                draws, rasters=rasters, detector=detector, device=dev, **kw))
+        out["k1"][f"fixture_{case}"] = k1n
+        c = seq.crops
+        win = fx[f"win_{case}"]
+        want = fx[f"scores_{case}"]
+        on = want > (0.3 if case == "a" else 0.0)
+        d_s = float(np.abs(c.scores - want).max()) if c.scores.shape == \
+            want.shape else np.inf
+        d_p = max(float(np.abs(getattr(c, k)[on] - fx[f"{k}_{case}"][on])
+                        .max()) for k in ("rows", "cols")) \
+            if np.isfinite(d_s) else np.inf
+        rows, want_rows = seq.det_rows, fx[f"det_rows_{case}"]
+        same = rows.shape == want_rows.shape
+        d_ll = float(np.abs(rows[:, 1:3] - want_rows[:, 1:3]).max()) \
+            if same else np.inf
+        d_uv = float(np.abs(rows[:, 3:5] - want_rows[:, 3:5]).max()) \
+            if same else np.inf
+        d_c = float(np.abs(rows[:, 5] - want_rows[:, 5]).max()) \
+            if same else np.inf
+        d_e = float(np.abs(res.errors - fx[f"errors_{case}"]).max()) \
+            if len(res.errors) == len(fx[f"errors_{case}"]) else np.inf
+        # JAX's own rows through the port's stream on the card
+        res_j = pipeline.run_streaming(
+            {"det_rows": want_rows, "orbit_pos_eci_km": seq.orbit_pos_eci_km},
+            seed=1, device=dev)
+        d_j = float(np.abs(res_j.errors - fx[f"errors_{case}"]).max()) \
+            if len(res_j.errors) == len(fx[f"errors_{case}"]) else np.inf
+        d_w = float(np.abs(c.windows[:, [2, 5]] - win[:, 1:3]).max())
+        margin = float(np.abs(want[on] - gate).min())
+        print(f"imagery fixture {case} vs JAX: crop windows' origins "
+              f"within {d_w:.3e} deg, "
+              f"max |d score| {d_s:.3e}, max |d row/col| {d_p:.3e} px "
+              f"(score > {0.3 if case == 'a' else 0.0}), rows "
+              f"{len(rows)} (JAX {len(want_rows)}), max |d lon/lat| "
+              f"{d_ll:.3e} deg, |d uv| {d_uv:.3e} px, |d conf| {d_c:.3e}, "
+              f"stream |d error| {d_e:.3e} km, JAX's rows streamed "
+              f"{d_j:.3e} km (JAX final "
+              f"{float(fx[f'errors_{case}'][-1]):.6f}); JAX's nearest "
+              f"score to the gate {margin:.3e} away")
+        _check(d_w <= 1e-9 and np.array_equal(c.shapes, win[:, 3:5])
+               and c.crop_hw == tuple(fx[f"crop_hw_{case}"]),
+               (case, "crops"))
+        _check(margin > 1e-4 and d_s <= 1e-5 and d_p <= 1e-3,
+               (case, "detections", margin, d_s, d_p))
+        _check(same and np.array_equal(rows[:, 0], want_rows[:, 0])
+               and d_ll <= 1e-9 and d_uv <= 1e-3 and d_c <= 1e-5,
+               (case, "rows", d_ll, d_uv, d_c))
+        # the rows' f32 sub-pixel differences (<= 2e-4 px on the card)
+        # move this 600 s one-window estimate by a few 1e-6 km: the port's
+        # rows are held at 1e-4 km, JAX's rows through the port at 1e-6
+        _check(np.array_equal(res.times, fx[f"times_{case}"])
+               and d_e <= 1e-4 and d_j <= 1e-6, (case, "stream", d_e, d_j))
+
+    # the detection stage alone under the profiler: case b's crops (the
+    # CNN) and case a's (the NCC)
+    for case, detector in (("a", None), ("b", det)):
+        draws, rasters, kw = _imagery_case(fx, case)
+        scene = pipeline._imagery_scene(
+            draws, kw["duration_s"], kw["frame_stride"],
+            kw.get("num_landmarks", 60), 0.01, 1.5, 12.0, rasters, dev, {})
+        Hc, Wc = pipeline.detect_crops(detector, scene.crops,
+                                       scene.templates)[3]
+        wall, per = _device_profile(lambda: pipeline.detect_crops(
+            detector, scene.crops, scene.templates))
+        busy = sum(t for _, t in per.values()) * 1e-6
+        top = sorted(per.items(), key=lambda kv: -kv[1][1])[:3]
+        n = len(scene.crops)
+        patches = n * ((Hc - 12) // 2 + 1) * ((Wc - 12) // 2 + 1)
+        extra = (f", {patches / wall:.4g} patches/s of the CNN"
+                 if detector is not None else "")
+        print(f"imagery detection alone, fixture {case}: {n} crops in "
+              f"{1e3 * wall:.2f} ms ({1e6 * wall / n:.1f} µs a crop{extra}),"
+              f" device busy {1e3 * busy:.2f} ms "
+              f"({100 * busy / wall:.1f}%); top kernels "
+              + "; ".join(f"{k[:60]} x{c} {t / 1e3:.2f} ms"
+                          for k, (c, t) in top) + f"  [{smi}]")
+        out[f"busy_{case}"] = busy / wall if per else None
+
+    # the port's own arcs: the entry point's defaults, the CLI's 10800 s
+    # arc, the PatchCNN on 1800 s (their windows hold < 49 knots: Thomas,
+    # no K1), then one arc a detector dense enough for windows of > 48
+    # knots, which the stream solves through K1
+    _, res, k1n, _, _ = _imagery_run(
+        "imagery own seed 1 (600 s, stride 30, NCC)", dev, smi,
+        lambda: pipeline.simulate_sequence_imagery(1, device=dev))
+    _check(len(res.errors) and np.isfinite(res.errors).all(),
+           ("own 600 s", res.errors))
+    out["k1"]["own_600"] = k1n
+    seq, res, k1n, _, _ = _imagery_run(
+        "imagery own seed 1 (10800 s, stride 30, NCC)", dev, smi,
+        lambda: pipeline.simulate_sequence_imagery(
+            1, duration_s=10800, frame_stride=30, device=dev))
+    _check(len(res.errors) and float(res.errors[-1]) < 5.0,
+           ("own 10800 s final", res.errors[-1:]))
+    out["k1"]["own_10800"] = k1n
+    seq, res, k1n, det_us, _ = _imagery_run(
+        "imagery own seed 1 (1800 s, stride 30, PatchCNN)", dev, smi,
+        lambda: pipeline.simulate_sequence_imagery(
+            1, duration_s=1800, frame_stride=30, num_landmarks=10,
+            templates=fx["templates_b"], detector=det, conf_threshold=0.5,
+            device=dev))
+    _check(len(res.errors) and float(res.errors.min()) < 5.0,
+           ("own 1800 s PatchCNN min", res.errors))
+    out["k1"]["own_1800_learned"] = k1n
+    n_grid = ((seq.crops.crop_hw[0] - 12) // 2 + 1) * (
+        (seq.crops.crop_hw[1] - 12) // 2 + 1)
+    print(f"PatchCNN on the 1800 s arc: {n_grid} patches a crop, "
+          f"{n_grid / (det_us * 1e-6):.4g} patches/s through the detection "
+          f"stage  [{smi}]")
+    # K1's imagery paths.  The PatchCNN's 10 classes give a 600 s arc of
+    # 10 landmarks, whose one-window estimate ends ~4-5 km off with any
+    # detector (the NCC detector on the same arc: 5.43 km at rows within
+    # 4.3 px): the rows it keeps are held to the reference's 10 px gate
+    for key, tag, kw in (
+            ("imagery_stream", "1800 s, stride 10, NCC",
+             dict(duration_s=1800, frame_stride=10)),
+            ("imagery_learned_stream", "600 s, stride 1, PatchCNN",
+             dict(duration_s=600, frame_stride=1, num_landmarks=10,
+                  templates=fx["templates_b"], detector=det,
+                  conf_threshold=0.5))):
+        _, res, k1n, _, px = _imagery_run(
+            f"imagery own seed 1 ({tag})", dev, smi,
+            lambda: pipeline.simulate_sequence_imagery(1, device=dev, **kw))
+        _check(len(res.errors) and np.isfinite(res.errors).all() and k1n > 0
+               and px[0] < 10.0, (key, k1n, res.errors, px))
+        if key == "imagery_stream":
+            _check(float(res.errors.min()) < 5.0, (key, res.errors))
+        out["k1"][key] = k1n
     return out
 
 
@@ -2284,6 +2581,10 @@ def main() -> int:
     p21 = _phase21(dev, smi, step_us["orbit"])
     phase_done(21)
 
+    # 22: the imagery path
+    p22 = _phase22(dev, smi)
+    phase_done(22)
+
     print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
     k3_ms, k3_plain_ms, k3_bound, k3_dev = k3_times[("regions", "float64")]
     print(json.dumps({"kernels": [
@@ -2303,7 +2604,10 @@ def main() -> int:
                               "stream_modes": k1_17,
                               "constellation_f32": p19["k1_config4_f32"],
                               "fullbatch_f32": p19["k1_config2_f32"],
-                              "hifi_stream": p21["k1"]},
+                              "hifi_stream": p21["k1"],
+                              "imagery_stream": p22["k1"]["imagery_stream"],
+                              "imagery_learned_stream":
+                                  p22["k1"]["imagery_learned_stream"]},
          "constellation_shape": dict(
              k1_shape4, max_rel_err=k1_err4,
              max_rel_err_run_first=k1_run4["first"][0],

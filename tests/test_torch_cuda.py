@@ -49,8 +49,19 @@ host loop on CUDA tensors stops each orbit of a scripted batch where the
 CPU's does.  The orbit, attitude and hi-fi rollouts, replayed on the card
 as a CUDA graph of their step, against their eager loop on the card:
 relative 1e-12.
+
+The imagery detectors on the crops of tests/data/torch_imagery_seed1.npz
+(cut on the CPU from JAX's region rasters): correlate_peaks_batch (case
+a, 60 templates) and detect_peaks_batch with the committed PatchCNN (case
+b, with and without its templates) on the card against the CPU: scores
+within 1e-5 and positions within 1e-3 px where the score is a match
+(above 0.3 for the NCC, above 0 for the CNN), grid positions exactly
+(float32 convolutions summed in another order; the card's run with TF32
+off, which the call checks by recording the flags at each convolution).
 """
 import functools
+import json
+import os
 
 import numpy as np
 import pytest
@@ -864,3 +875,86 @@ def test_rollout_graph_matches_eager_loop(which, monkeypatch):
         monkeypatch.undo()
         assert graphed.shape == (101,) + tuple(x.shape)
         assert _rel(graphed, eager) <= 1e-12
+
+
+IMAGERY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "torch_imagery_seed1.npz")
+DETECTOR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "detector_full_snr1.npz")
+
+
+def _imagery_crops(case):
+    """The fixture case's crops (cut on the CPU from JAX's rasters), padded
+    to one uint8 (F, Hc, Wc) batch, and its templates."""
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.sim import orbits
+
+    fx = np.load(IMAGERY)
+    g = lambda k: fx[f"{k}_{case}"]  # noqa: E731
+    kw = json.loads(str(g("kwargs")))
+    draws = pipeline.ImageryDraws(
+        orbits.OrbitalElements(*(float(v) for v in g("oe"))), g("q0"),
+        g("w0"), int(g("db_seed")), torch.as_tensor(g("templates")))
+    scene = pipeline._imagery_scene(
+        draws, kw["duration_s"], kw["frame_stride"],
+        kw.get("num_landmarks", 60), 0.01, 1.5, 12.0,
+        [g(f"raster{i}") for i in range(len(g("affine")))],
+        torch.device("cpu"), {})
+    Hc, Wc = (int(v) for v in g("crop_hw"))
+    batch = np.zeros((len(scene.crops), Hc, Wc), np.uint8)
+    for j, c in enumerate(scene.crops):
+        batch[j, :c.shape[0], :c.shape[1]] = c
+    return torch.from_numpy(batch), scene.templates
+
+
+def _card_vs_cpu(fn, crops, thr):
+    """fn(crops on the card) against fn(crops on the CPU), TF32 flags
+    recorded at every convolution of the card's run."""
+    import torch.nn.functional as F
+
+    seen, conv = [], F.conv2d
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv(*a, **kw)
+
+    F.conv2d = spy
+    try:
+        got = [a.cpu() for a in fn(crops.cuda(), "cuda")]
+    finally:
+        F.conv2d = conv
+    want = fn(crops, "cpu")
+    assert seen and not any(seen)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    on = want[0] > thr
+    assert on.sum() > 0
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g[on] - w[on]).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_correlate_peaks_batch_on_card_matches_cpu():
+    _cuda()
+    from vinsat_tpu_torch.sim import imagery
+
+    crops, templates = _imagery_crops("a")
+    _card_vs_cpu(lambda c, d: imagery.correlate_peaks_batch(
+        c, templates.to(d)), crops, 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_templates", [False, True])
+def test_detect_peaks_batch_on_card_matches_cpu(with_templates):
+    _cuda()
+    from vinsat_tpu_torch.sim import learned_detector as ld
+
+    crops, templates = _imagery_crops("b")
+    crops = crops[:3]
+
+    def fn(c, d):
+        det = ld.load_detector(DETECTOR, device=d)
+        if with_templates:
+            det = det._replace(templates=templates.to(d))
+        return ld.detect_peaks_batch(det, c)
+
+    _card_vs_cpu(fn, crops, 0.0)

@@ -104,7 +104,14 @@ def test_port_imports_no_jax():
             "vinsat_tpu_torch.estimation.hybrid, "
             "vinsat_tpu_torch.dist.stream, "
             "vinsat_tpu_torch.evalx.calibration, "
-            "vinsat_tpu_torch.utils.checkpoint; "
+            "vinsat_tpu_torch.utils.checkpoint, "
+            "vinsat_tpu_torch.evalx.px_err, "
+            "vinsat_tpu_torch.sim.landmarks, "
+            "vinsat_tpu_torch.sim.imagery, "
+            "vinsat_tpu_torch.sim.detector, "
+            "vinsat_tpu_torch.sim.learned_detector, "
+            "vinsat_tpu_torch.tools.raster, "
+            "vinsat_tpu_torch.tools.labeling; "
             "sys.exit(int(any(m == 'jax' or m.startswith(('jax.', "
             "'vinsat_tpu.')) or m == 'vinsat_tpu' for m in sys.modules)))")
     env = dict(os.environ, PYTHONPATH=ROOT)

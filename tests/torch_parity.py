@@ -197,3 +197,45 @@ def jax_simulation(seed: int, db=None, **sim_kw) -> dict:
         count=count, db={k: np.asarray(v) for k, v in jdb._asdict().items()},
         traj={k: np.asarray(v) for k, v in seq.traj._asdict().items()},
         dets={k: np.asarray(v) for k, v in dets._asdict().items()})
+
+
+IMAGERY_FIXTURE = "torch_imagery_seed1.npz"
+
+
+def jax_region_noise(seed: int):
+    """(ci, H, W) -> the float32 noise image of region ci as the JAX
+    package's jitted render_region_u8 computes it for
+    simulate_sequence_imagery(seed): XLA folds the constants of
+    `0.15 * normal` (normal = sqrt(2) erf_inv(u)) into one, so the image is
+    erf_inv(u) * f32(0.15 * sqrt(2)), which differs from 0.15 times the
+    eager normal draws in the last bit at ~28% of the pixels."""
+    k_img = jax.random.split(jax.random.PRNGKey(seed), 4)[3]
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    scale = np.float32(0.15) * np.float32(np.sqrt(2))
+
+    def noise(ci, H, W):
+        u = jax.random.uniform(jax.random.fold_in(k_img, ci), (H, W),
+                               jnp.float32, lo, 1.0)
+        return torch.as_tensor(np.array(jax.lax.erf_inv(u)) * scale)
+
+    return noise
+
+
+def imagery_case(fx, case: str):
+    """(draws, rasters, simulate kwargs) of one case of the imagery
+    fixture, as the port takes them (the rasters as the path reads them:
+    pixels no crop reads are zero)."""
+    import json
+
+    from vinsat_tpu_torch import pipeline as tpipeline
+    from vinsat_tpu_torch.sim import orbits as torbits
+
+    def g(k):
+        return fx[f"{k}_{case}"]
+
+    draws = tpipeline.ImageryDraws(
+        torbits.OrbitalElements(*(float(v) for v in g("oe"))),
+        np.asarray(g("q0")), np.asarray(g("w0")), int(g("db_seed")),
+        torch.as_tensor(g("templates")))
+    rasters = [g(f"raster{i}") for i in range(len(g("affine")))]
+    return draws, rasters, json.loads(str(g("kwargs")))

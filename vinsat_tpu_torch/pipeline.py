@@ -1,5 +1,6 @@
 """End-to-end entry points of the port (vinsat_tpu/pipeline.py):
-`simulate_sequence` (the detection simulator), `run_streaming`
+`simulate_sequence` (the detection simulator), `simulate_sequence_imagery`
+(the same through rendered rasters and an image detector), `run_streaming`
 (streaming orbit determination), `run_batch_eval` (the orbit-by-orbit
 evaluation) and `run_constellation` (BASELINE config 4: B orbits' LM
 solves as one batched program).
@@ -12,13 +13,15 @@ tests/data/torch_stream_seed1.npz.
 The simulator draws from a CPU `torch.Generator` seeded with `seed`, not
 from JAX's threefry stream: a port seed gives another orbit, database and
 detections than the same JAX seed, and the same ones on every device.
-`simulate_from_draws` is its deterministic core, which the parity tests
-feed with the JAX package's own draws.
+`simulate_from_draws` and `simulate_imagery_from_draws` are the
+deterministic cores, which the parity tests feed with the JAX package's
+own draws.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -30,9 +33,13 @@ from vinsat_tpu_torch.estimation import ba, factors, ingest, window
 from vinsat_tpu_torch.estimation.window import (StreamingConfig,
                                                 StreamingResult, stream_orbit)
 from vinsat_tpu_torch.evalx import ate, crlb
+from vinsat_tpu_torch.sim import camera as cam_mod
 from vinsat_tpu_torch.sim import detections as det_mod
+from vinsat_tpu_torch.sim import imagery
 from vinsat_tpu_torch.sim import landmarks as lm_mod
+from vinsat_tpu_torch.sim import learned_detector as ld_mod
 from vinsat_tpu_torch.sim import mgrs, orbits
+from vinsat_tpu_torch.tools.raster import Affine, RasterImageServer
 
 
 def track_landmark_db(traj: orbits.Trajectory, seed: int, every_s: int = 60,
@@ -170,6 +177,336 @@ def simulate_sequence(seed: int, duration_s: int = 10800,
         frame_stride=frame_stride, max_dets=max_dets,
         along_track=along_track, pass_every_s=pass_every_s,
         pass_len_s=pass_len_s, hifi_truth=hifi_truth, device=device)
+
+
+class ImageryDraws(NamedTuple):
+    """Every random number of one imagery sequence: orbital elements,
+    initial attitude and rates, the landmark DB's int seed, the class
+    templates (at least as many as the sequence's classes; the first K
+    are used) and, for region ci of shape (H, W), its float32 noise
+    image `region_noise(ci, H, W)` (0.15 times standard-normal draws)."""
+
+    oe: orbits.OrbitalElements
+    q0: np.ndarray
+    w0: np.ndarray
+    db_seed: int
+    templates: torch.Tensor  # (>= K, S, S) float32
+    region_noise: Optional[Callable[[int, int, int], torch.Tensor]] = None
+
+
+def draw_imagery(seed: int, num_landmarks: int = 60) -> ImageryDraws:
+    """The draws of simulate_sequence_imagery(seed), from one CPU
+    torch.Generator: elements, attitude, DB seed, num_landmarks
+    templates of 12 x 12, then each region's noise as stage 0 asks for
+    it."""
+    g = torch.Generator().manual_seed(seed)
+    oe = orbits.sample_random_oe(g)
+    q0, w0 = orbits.sample_attitude(g)
+    db_seed = int(torch.randint(0, 2**31 - 1, (), generator=g))
+    templates = imagery.make_landmark_templates(g, num_landmarks, 12,
+                                                device="cpu")
+    return ImageryDraws(oe, q0.numpy(), w0.numpy(), db_seed, templates,
+                        lambda ci, H, W: 0.15 * torch.randn((H, W),
+                                                            generator=g))
+
+
+class CropDetections(NamedTuple):
+    """The crops the detector ran on and its per-crop output."""
+
+    frames: np.ndarray  # (F,) frame (second) of each crop
+    windows: np.ndarray  # (F, 6) each crop's transform (a, b, c, d, e, f)
+    shapes: np.ndarray  # (F, 2) each crop's (h, w) before padding
+    crop_hw: Tuple[int, int]  # the (Hc, Wc) every crop was padded to
+    scores: np.ndarray  # (F, K) float32
+    rows: np.ndarray  # (F, K) float32
+    cols: np.ndarray  # (F, K) float32
+
+
+class ImagerySequence(NamedTuple):
+    det_rows: np.ndarray  # (M, 6) [frame, lon, lat, xc, yc, conf]
+    orbit_pos_eci_km: np.ndarray  # (T, 3)
+    traj: orbits.Trajectory
+    db: lm_mod.LandmarkDB
+    crops: Optional[CropDetections]
+    stage_s: dict  # seconds of each stage
+
+
+class _Scene(NamedTuple):
+    """Stages 0-2: the regions rendered and registered, every footprint,
+    the crops cut."""
+
+    traj: orbits.Trajectory
+    db: lm_mod.LandmarkDB
+    lon: np.ndarray  # (K,) the classes' landmarks
+    lat: np.ndarray
+    templates: torch.Tensor  # (K, S, S) float32 on the device
+    cam: cam_mod.CameraModel
+    poses: cam_mod.CameraPose  # every frame's (f64, on the device)
+    crops: List[np.ndarray]  # uint8 (h, w) each
+    frames: np.ndarray  # (F,) frame of each crop
+    pose_rows: np.ndarray  # (F,) its row in `poses`
+    windows: List[Affine]
+
+
+def _clusters(lon, lat, span_deg: float) -> List[List[int]]:
+    """Track-ordered clustering: each landmark joins the last cluster while
+    that stays under span_deg in lon and lat, else starts a new one."""
+    clusters: List[List[int]] = []
+    for k in range(len(lon)):
+        if clusters:
+            cur = clusters[-1] + [k]
+            if (lon[cur].max() - lon[cur].min() < span_deg
+                    and lat[cur].max() - lat[cur].min() < span_deg):
+                clusters[-1] = cur
+                continue
+        clusters.append([k])
+    return clusters
+
+
+def _choose_region(b, region_boxes) -> Optional[str]:
+    """The region whose box holds the footprint box b's centre, the centre
+    brought back into [-180, 180) and tested at lon and lon + 360 (boxes
+    over the antimeridian have lon_max > 180; region boxes carry raw
+    longitudes with a 1 deg margin, so their east edge can reach 181)."""
+    cx = 0.5 * (b[0] + b[2])
+    cx = (cx + 180.0) % 360.0 - 180.0
+    cy = 0.5 * (b[1] + b[3])
+    for name, lo, la0, hi, la1 in region_boxes:
+        if (lo <= cx <= hi or lo <= cx + 360.0 <= hi) and la0 <= cy <= la1:
+            return name
+    return None
+
+
+def _imagery_scene(draws: ImageryDraws, duration_s: int, frame_stride: int,
+                   num_landmarks: int, deg_per_px: float, amplitude: float,
+                   max_region_span_deg: float, rasters, device,
+                   stage_s: dict) -> _Scene:
+    """Stages 0-2 of the imagery path on `device` (f64 ground truth):
+    the trajectory and track DB; stage 0, the classes clustered into
+    regions of <= max_region_span_deg, each rendered (from
+    draws.region_noise, or taken from `rasters`, uint8 (H, W) each) at
+    deg_per_px with its shape rounded up to 256; stage 1, every frame's
+    footprint in one batched call; stage 2, the host crops of the
+    footprints whose centre lies in a region (at least 16 px each way)."""
+    t0 = time.perf_counter()
+    traj = orbits.trajectory_from_draws(draws.oe, draws.q0, draws.w0,
+                                        duration_s, device=device)
+    db = track_landmark_db(
+        traj, draws.db_seed,
+        every_s=max(duration_s // max(num_landmarks // 3, 1), 1),
+        per_point=3, spread_deg=0.8)
+    lon = db.lon[:num_landmarks].cpu().numpy()
+    lat = db.lat[:num_landmarks].cpu().numpy()
+    K = len(lon)
+    if draws.templates.shape[0] < K:
+        raise ValueError(f"templates cover {draws.templates.shape[0]} "
+                         f"classes < {K} landmarks")
+    templates = draws.templates[:K].to(device=device, dtype=torch.float32)
+    stage_s["trajectory"] = time.perf_counter() - t0
+
+    # stage 0: the region rasters
+    t0 = time.perf_counter()
+    srv = RasterImageServer()
+    region_boxes = []
+    for ci, cl in enumerate(_clusters(lon, lat, max_region_span_deg)):
+        lon0, lon1 = lon[cl].min() - 1.0, lon[cl].max() + 1.0
+        lat0, lat1 = lat[cl].min() - 1.0, lat[cl].max() + 1.0
+        W = int(np.ceil((lon1 - lon0) / deg_per_px / 256) * 256)
+        H = int(np.ceil((lat1 - lat0) / deg_per_px / 256) * 256)
+        t = Affine(deg_per_px, 0.0, lon0, 0.0, -deg_per_px, lat1)
+        if rasters is not None:
+            img8 = np.asarray(rasters[ci] if ci < len(rasters) else [],
+                              np.uint8)
+            if img8.shape != (H, W):
+                raise ValueError(f"raster {ci} is {img8.shape}, region "
+                                 f"{ci} needs {(H, W)}")
+        else:
+            cols, rows_px = t.world_to_pixel(lon, lat)
+            # classes outside this raster fall outside the image: not drawn
+            img8 = imagery.to_u8(imagery.render_from_draws(
+                draws.region_noise(ci, H, W).to(device), templates,
+                np.stack([cols, rows_px], 1), amplitude)).cpu().numpy()
+        srv.register(f"R{ci}", img8[..., None], t)
+        region_boxes.append((f"R{ci}", lon0, lat0, lon1, lat1))
+    stage_s["render"] = time.perf_counter() - t0
+
+    # stage 1: every footprint in one batched call
+    t0 = time.perf_counter()
+    cam = cam_mod.CameraModel.from_hfov()
+    frames_idx = np.arange(0, duration_s + 1, frame_stride)
+    poses = cam_mod.CameraPose.nadir(
+        traj.pos_ecef[torch.as_tensor(frames_idx, device=device)] * 1000.0)
+    bounds_b, ok_b = cam_mod.footprint_bounds(cam, poses)
+    bounds_b, ok_b = bounds_b.cpu().numpy(), ok_b.cpu().numpy()
+    stage_s["footprints"] = time.perf_counter() - t0
+
+    # stage 2: host crops
+    t0 = time.perf_counter()
+    crops, fis, rows_i, wins = [], [], [], []
+    for i, fi in enumerate(frames_idx):
+        if not ok_b[i]:
+            continue
+        b = bounds_b[i]
+        region = _choose_region(b, region_boxes)
+        if region is None:
+            continue
+        win, wt = srv.get_window(region, b[0], b[1], b[2], b[3])
+        if win is None or min(win.shape[:2]) < 16:
+            continue
+        crops.append(win[..., 0])
+        fis.append(int(fi))
+        rows_i.append(i)
+        wins.append(wt)
+    stage_s["crops"] = time.perf_counter() - t0
+    return _Scene(traj, db, lon, lat, templates, cam, poses, crops,
+                  np.array(fis, np.int64), np.array(rows_i, np.int64), wins)
+
+
+def detect_crops(detector, crops: Sequence[np.ndarray],
+                 templates: torch.Tensor):
+    """Stage 3: every crop, zero-padded to one (Hc, Wc) (each a multiple of
+    64), through the detector in chunks of min(16, 2e8 / (K Hc Wc))
+    crops, uploaded as uint8 and cast on the device; one host sync in
+    all.  detector None is the NCC TemplateDetector over `templates` (K,
+    S, S); a TrainedDetector without templates gets `templates` attached
+    (the render's class appearances) for its matched-filter stage.
+    Returns ((F, K) scores, rows, cols as float32 numpy, (Hc, Wc))."""
+    K = templates.shape[0]
+    Hc = int(np.ceil(max(c.shape[0] for c in crops) / 64) * 64)
+    Wc = int(np.ceil(max(c.shape[1] for c in crops) / 64) * 64)
+    chunk = max(1, min(16, int(2e8 / max(K * Hc * Wc, 1))))
+    if detector is not None:
+        if detector.device != templates.device:
+            raise ValueError(f"detector on {detector.device}, crops go to "
+                             f"{templates.device}")
+        if detector.templates is None:
+            detector = detector._replace(
+                templates=templates[:detector.num_classes])
+    out = []
+    for j0 in range(0, len(crops), chunk):
+        part = crops[j0:j0 + chunk]
+        batch = np.zeros((len(part), Hc, Wc), np.uint8)
+        for j, c in enumerate(part):
+            batch[j, :c.shape[0], :c.shape[1]] = c
+        batch = torch.from_numpy(batch).to(templates.device)
+        if detector is None:
+            out.append(imagery.correlate_peaks_batch(batch, templates))
+        else:
+            out.append(tuple(a[:, :K] for a in
+                             ld_mod.detect_peaks_batch(detector, batch)))
+    scores, rows_, cols_ = (torch.cat(o).cpu().numpy() for o in zip(*out))
+    return scores, rows_, cols_, (Hc, Wc)
+
+
+def _rows_from_detections(scene: _Scene, scores, rows_, cols_,
+                          conf_threshold: float, calibrate: bool,
+                          stage_s: dict) -> np.ndarray:
+    """Stages 4-5: the (F, K) candidates thresholded in one numpy pass
+    (score > conf_threshold, inside the unpadded crop) and mapped to lon /
+    lat through each crop's transform; then every candidate reprojected
+    into its frame's camera in one batched f64 call on the device, the
+    rows inside the image kept: [frame, class lon, class lat, u, v, conf],
+    conf = 0.5 + 0.5 score for the NCC detector (calibrate), the score as
+    it is for the trained one."""
+    t0 = time.perf_counter()
+    hj = np.array([c.shape[0] for c in scene.crops])[:, None]
+    wj = np.array([c.shape[1] for c in scene.crops])[:, None]
+    wa = np.array([list(w) for w in scene.windows])
+    keep = (scores > conf_threshold) & (rows_ < hj) & (cols_ < wj)
+    jsel, ksel = np.nonzero(keep)
+    c_sel, r_sel = cols_[jsel, ksel], rows_[jsel, ksel]
+    dlon = wa[jsel, 0] * c_sel + wa[jsel, 1] * r_sel + wa[jsel, 2]
+    dlat = wa[jsel, 3] * c_sel + wa[jsel, 4] * r_sel + wa[jsel, 5]
+    conf = (0.5 + 0.5 * scores[jsel, ksel] if calibrate
+            else scores[jsel, ksel])
+    stage_s["threshold"] = time.perf_counter() - t0
+    if not len(jsel):
+        return np.zeros((0, 6))
+    t0 = time.perf_counter()
+    device = scene.poses.position.device
+    sel = torch.as_tensor(scene.pose_rows[jsel], device=device)
+    pose = cam_mod.CameraPose(scene.poses.position[sel],
+                              scene.poses.R_wc[sel])
+    uv, _ = cam_mod.lonlat_to_pixel(
+        scene.cam, pose,
+        *(torch.as_tensor(a, dtype=torch.float64, device=device)[:, None]
+          for a in (dlon, dlat)))
+    u, v = uv[:, 0].cpu().numpy().T
+    stage_s["reprojection"] = time.perf_counter() - t0
+    inside = ((0 <= u) & (u < scene.cam.width_px) & (0 <= v)
+              & (v < scene.cam.height_px))
+    det = np.stack([scene.frames[jsel], scene.lon[ksel], scene.lat[ksel], u,
+                    v, conf.astype(np.float64)], axis=1)
+    return det[inside]
+
+
+def simulate_imagery_from_draws(draws: ImageryDraws, duration_s: int = 600,
+                                frame_stride: int = 30,
+                                num_landmarks: int = 60,
+                                deg_per_px: float = 0.01,
+                                conf_threshold: float = 0.55,
+                                amplitude: float = 1.5,
+                                max_region_span_deg: float = 12.0,
+                                detector=None, rasters=None,
+                                device=DEFAULT_DEVICE) -> ImagerySequence:
+    """simulate_sequence_imagery's deterministic core: stages 0-5 from the
+    draws (or, with `rasters`, from the region rasters themselves, uint8
+    (H, W) a region in stage 0's order, in place of rendering them), on
+    `device`.  Ground truth and reprojection run in f64, rendering and
+    detection in f32 with TF32 off."""
+    device = resolve_device(device)
+    stage_s: dict = {}
+    scene = _imagery_scene(draws, duration_s, frame_stride, num_landmarks,
+                           deg_per_px, amplitude, max_region_span_deg,
+                           rasters, device, stage_s)
+    pos_eci = scene.traj.pos_eci.cpu().numpy()
+    if not scene.crops:
+        return ImagerySequence(np.zeros((0, 6)), pos_eci, scene.traj,
+                               scene.db, None, stage_s)
+    t0 = time.perf_counter()
+    scores, rows_, cols_, crop_hw = detect_crops(detector, scene.crops,
+                                                 scene.templates)
+    stage_s["detection"] = time.perf_counter() - t0
+    det = _rows_from_detections(scene, scores, rows_, cols_, conf_threshold,
+                                detector is None, stage_s)
+    crops = CropDetections(
+        scene.frames, np.array([list(w) for w in scene.windows]),
+        np.array([c.shape for c in scene.crops]), crop_hw, scores, rows_,
+        cols_)
+    return ImagerySequence(det, pos_eci, scene.traj, scene.db, crops,
+                           stage_s)
+
+
+def simulate_sequence_imagery(seed: int, duration_s: int = 600,
+                              frame_stride: int = 30,
+                              num_landmarks: int = 60,
+                              deg_per_px: float = 0.01,
+                              conf_threshold: float = 0.55,
+                              amplitude: float = 1.5,
+                              max_region_span_deg: float = 12.0,
+                              detector=None, templates=None,
+                              device=DEFAULT_DEVICE) -> ImagerySequence:
+    """A detection sequence through the imagery path: region rasters
+    rendered along the ground track (landmarks from `track_landmark_db`,
+    the first num_landmarks of them the classes, clustered into regions
+    of <= max_region_span_deg at deg_per_px), each frame's footprint window
+    cropped from its region, the crops through the detector on `device`,
+    the detections mapped back to the reference's global rows.
+
+    detector None runs the NCC TemplateDetector (conf_threshold gates the
+    raw score in [-1, 1]; confidence 0.5 + 0.5 score); a
+    learned_detector.TrainedDetector (on `device`) runs the PatchCNN, its
+    scores already confidences.  templates (>= K, S, S) replaces the
+    drawn class appearances, e.g. those a committed detector was trained
+    on.  Draws from one CPU torch.Generator seeded with `seed`
+    (draw_imagery)."""
+    draws = draw_imagery(seed, num_landmarks)
+    if templates is not None:
+        draws = draws._replace(templates=torch.as_tensor(templates))
+    return simulate_imagery_from_draws(
+        draws, duration_s, frame_stride, num_landmarks, deg_per_px,
+        conf_threshold, amplitude, max_region_span_deg, detector,
+        device=device)
 
 
 def stream_inputs(seq) -> Tuple[np.ndarray, np.ndarray]:
