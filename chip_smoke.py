@@ -20,10 +20,14 @@ Phases (each prints its lines; any failure exits non-zero):
      (9N x 9N) systems;
   4. the streaming slice: orbit determination of the committed 10800 s
      fixture (tests/data/torch_stream_seed1.npz) through the port's
-     run_streaming on cuda in f64, once (its wall), held to the
-     JAX package's result in the fixture (window count, time to 5 km,
-     final error within 0.01 km), with K1's launch count from that run
-     and the (B, N) shapes it was launched at;
+     run_streaming on cuda in f64, once (its wall), by its default async
+     fast path (each window's LM solve replayed from captured CUDA graphs,
+     one host read at the end; the process's first stream, so it
+     captures them), held to the JAX package's result in the fixture
+     (window count, time to 5 km, final error within 0.01 km), with K1's
+     launch count from that run (one eager warm-up a window program
+     before its captures, and the solves of every replayed graph) and
+     the (B, N) shapes it was launched at;
   5. the tail refinement (refine_terminal, rigid chain) of the stream's
      final states over the whole arc on cuda — the bench arc ends on a
      detection knot, so the stream itself never runs it — against the JAX
@@ -90,16 +94,20 @@ Phases (each prints its lines; any failure exits non-zero):
      1e-6 relative); then run_batch_eval([0, 1]) at 3600 s from the
      port's own generator: a finite summary and its per-orbit rows;
  15. the f32 stream: torch's f32 matmuls checked true f32 (no TF32), the
-     fixture of 4 streamed with StreamingConfig(dtype="float32"), once:
-     7 windows, 275.0 s to 5 km, final error within
-     0.01 km of JAX's f64 result, of JAX's f32 run
-     (tests/data/torch_modes_seed1.npz) and of phase 4's; the wall beside
+     fixture of 4 streamed with StreamingConfig(dtype="float32") by the
+     default fast path (not re-run in sync mode, no trip) and by the sync
+     path (fast=False), each held to 7 windows, 275.0 s to 5 km, final
+     error within 0.01 km of JAX's f64 result, of JAX's f32 run
+     (tests/data/torch_modes_seed1.npz) and of phase 4's; the walls beside
      phase 4's, the seconds in the f64 escapes (window 0's init, the
-     ladder's f64 rung), K1's launches by (dtype, B, N); K1 on the run's
+     ladder's f64 rung), K1's launches by (dtype, B, N); the sync run's
+     eager K1 launches show their systems: K1 on that run's
      first and last f32 systems against its twin and against f64 Thomas,
      with backward errors, and timed at the last one's shape; a forced
      escalation (recover_rms_px=1e-3, the fixed 20-iteration budget) on
-     config 3's gapped sequence: every window trips, finite, min error
+     config 3's gapped sequence, by the default fast path, which finds
+     the windows above the gate and runs the stream again in sync mode
+     (sync_rerun, reported): every window trips, finite, min error
      < 2 km;
  16. BASELINE configs 1-3 (vinsat_tpu_torch/run_configs.py) on JAX's rows
      from the same fixture, held knot by knot through the streams and
@@ -124,7 +132,10 @@ Phases (each prints its lines; any failure exits non-zero):
      checkpoint (JAX's final within 0.01 km); a bounded stream with
      auto_calibrate (JAX's times, final within 0.01 km); an early-stop
      stream (conv_patience 5): the LM iterations of every window solve
-     equal to JAX's, final within 0.01 km;
+     equal to JAX's (the host early stop: fast=False), final within
+     0.01 km, and the same stream by the default fast path (the stop
+     frozen inside the graphs; not re-run, JAX's times, final within
+     0.01 km of JAX's);
  18. config 5(b), stream_orbit_sharded on a 1x8 mesh from JAX's rows (max
      30 iterations, seed 1) in f64 at the default dispatch (every window on
      one shard), with shard_min_knots=0 (every window on the 8 shards) and
@@ -223,7 +234,18 @@ Phases (each prints its lines; any failure exits non-zero):
      bench rows' graph and windows, crops); the CLI's arc streamed with
      a MetricsLogger and a StageTimer under deterministic kernels, equal
      to the plain run, its stage report; utils/mfu's table at N = 256.
-Each phase prints its seconds.  The last two lines are the card's
+ 24. the stream's async fast dispatch against its sync path: the bench
+     fixture's stream (f64) fast, sync, fast, sync under torch's
+     deterministic kernels: the four within 1e-12 relative (bit-equal
+     expected, printed), none re-run; the fast runs' replayed K1 launches
+     by (B, N) equal to the sync runs' eager ones; the second fast run
+     captures nothing (window programs and rk4_chain's kept steps) and
+     launches nothing eagerly; each run's wall, captures and replays; a
+     step reading the host inside a capture raises.  At the end the
+     fast path's kept window programs are within their bound.
+Each phase prints its seconds and, once the port's graph cache is
+loaded, its kept window programs, captures and drops and the card's
+reserved memory (also after each stream of phase 14's run_batch_eval).  The last two lines are the card's
 nvidia-smi line and the device JSON line; the kernels' JSON record comes
 before them.  Needs torch with CUDA and nvcc; imports no JAX.
 """
@@ -480,16 +502,32 @@ def _patched(module, name, hook):
         setattr(module, name, orig)
 
 
+@contextlib.contextmanager
 def _k1_recording(on_launch):
-    """Inside the block every K1 launch is first shown to
-    on_launch(D, U, b)."""
+    """Inside the block every K1 launch is shown to on_launch(B, N, dtype,
+    system) as it is counted: `system` the (D, U, b) of an eager launch,
+    None for a solve launched by the replay of a captured graph (the
+    stream's fast path, estimation/graphs.py), whose systems live in the
+    graph's memory.  A solve being captured is not a launch."""
     from vinsat_tpu_torch.kernels import tridiag_pcr
 
-    def hook(launch, D, U, b):
-        on_launch(D, U, b)
-        return launch(D, U, b)
+    eager = []
 
-    return _patched(tridiag_pcr, "_launch", hook)
+    def launch_hook(launch, D, U, b):
+        eager.append((D, U, b))
+        try:
+            return launch(D, U, b)
+        finally:
+            eager.pop()
+
+    def count_hook(count, shapes):
+        for B, N, dtype in shapes:
+            on_launch(B, N, dtype, eager[-1] if eager else None)
+        return count(shapes)
+
+    with _patched(tridiag_pcr, "_launch", launch_hook), \
+            _patched(tridiag_pcr, "launched", count_hook):
+        yield
 
 
 def _k1_at_shape(D, U, b, peak: float, what: str, smi: str) -> dict:
@@ -816,12 +854,14 @@ def _phase17(dev, smi) -> dict:
         iters.append(count[0])
         return out
 
+    # the host early stop is the sync path's (the fast path runs it frozen
+    # to max_iters inside its graphs, tests/test_torch_fast_stream.py)
     solver = ba.SolverParams(**json.loads(str(dfx["early_solver_kwargs"])))
     with _patched(ba, "ba_iteration", counted_iteration), \
             _patched(window, "_solve_window", counted_solve):
         early = stream("early_stop", f"early-stop stream (conv_patience "
-                       f"{solver.conv_patience})", window.StreamingConfig(),
-                       solver=solver)
+                       f"{solver.conv_patience}, fast=False)",
+                       window.StreamingConfig(), solver=solver, fast=False)
     f_e = float(dfx["early_errors"][-1])
     print(f"early stop: iterations by window solve {iters} (JAX "
           f"{dfx['early_iters'].tolist()}), final {early.errors[-1]:.6f} km "
@@ -829,6 +869,22 @@ def _phase17(dev, smi) -> dict:
     _check(iters == dfx["early_iters"].tolist()
            and abs(early.errors[-1] - f_e) <= 0.01,
            ("early stop", iters, early.errors[-1]))
+    # the same solver on the default (fast) path: the early stop frozen
+    # inside the captured graphs, held to JAX as the sync run is
+    early_f = stream("early_stop_fast", f"early-stop stream (conv_patience "
+                     f"{solver.conv_patience}, the default fast path)",
+                     window.StreamingConfig(), solver=solver)
+    d_f = float(np.abs(early_f.final_states - early.final_states).max()
+                / np.abs(early.final_states).max())
+    print(f"early stop, fast path: sync_rerun {early_f.sync_rerun}, final "
+          f"{early_f.errors[-1]:.6f} km (JAX {f_e:.6f}, sync path "
+          f"{early.errors[-1]:.6f}); final states rel vs the sync path "
+          f"{d_f:.3e}")
+    _check(not early_f.sync_rerun
+           and np.array_equal(early_f.times, early.times)
+           and abs(early_f.errors[-1] - f_e) <= 0.01,
+           ("early stop, fast path", early_f.sync_rerun,
+            early_f.errors[-1]))
     return launches
 
 
@@ -1009,9 +1065,9 @@ def _phase19(dev, smi, seqs4) -> dict:
     # config 4 in f32: every K1 launch at (B, n_pad) in f32
     k1_by, k1_last = collections.Counter(), []
 
-    def on_launch(D, U, b):
-        k1_by[(str(D.dtype)[6:], D.shape[0], D.shape[1])] += 1
-        k1_last[:] = [a.clone() for a in (D, U, b)]
+    def on_launch(B, N, dtype, system):
+        k1_by[(str(dtype)[6:], B, N)] += 1
+        k1_last[:] = [a.clone() for a in system]
 
     solve.launches = 0
     seeds4 = [int(v) for v in c4["seeds"]]
@@ -1920,6 +1976,131 @@ def _phase23(dev, smi) -> dict:
 T_START = time.time()
 
 
+def _phase24(dev, smi) -> dict:
+    """24. The stream's fast dispatch against its sync path on the bench
+    fixture's stream (f64), fast, sync, fast, sync, under torch's
+    deterministic kernels: the four results equal; K1's launches and
+    (B, N) shapes of the fast runs' graph replays equal the sync runs'
+    eager launches; the second fast run captures nothing (window programs
+    and rk4_chain's kept steps) and launches nothing eagerly; the walls and the
+    captures and replays of each run.  Then a step that reads the host
+    inside a capture: the capture raises (no eager fallback).  Returns
+    K1's launches by run and the walls."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.core import dynamics
+    from vinsat_tpu_torch.estimation import graphs, window
+    from vinsat_tpu_torch.kernels import tridiag_pcr
+
+    fx = np.load(STREAM_FIXTURE)
+    det, orbit = pipeline.stream_inputs(fx)
+    cfg = window.StreamingConfig(dtype="float64")
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    runs = {}
+    with _deterministic():
+        for tag in ("fast_1", "sync_1", "fast_2", "sync_2"):
+            fast = tag.startswith("fast")
+            replayed, eager = collections.Counter(), collections.Counter()
+
+            def on_launch(B, N, dtype, system):
+                (eager if system is not None else replayed)[(B, N)] += 1
+
+            before = (graphs.stats["captures"], graphs.stats["replays"],
+                      dynamics.kept_captures["captures"])
+            solve.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with _k1_recording(on_launch):
+                res = window.stream_orbit(det, orbit, seed=int(fx["seed"]),
+                                          cfg=cfg, device=dev,
+                                          fast=None if fast else False)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            runs[tag] = dict(
+                res=res, wall=wall, launches=solve.launches,
+                replayed=replayed, eager=eager,
+                captures=graphs.stats["captures"] - before[0],
+                replays=graphs.stats["replays"] - before[1],
+                chain_captures=dynamics.kept_captures["captures"]
+                - before[2])
+            r = runs[tag]
+            print(f"stream {tag.replace('_', ' ')} (deterministic kernels): "
+                  f"{wall:.2f} s, final {res.errors[-1]:.6f} km, "
+                  f"sync_rerun {res.sync_rerun}; graphs captured "
+                  f"{r['captures']} (rk4_chain steps {r['chain_captures']}),"
+                  f" replayed {r['replays']}; K1 launches {r['launches']}: "
+                  f"{sum(replayed.values())} replayed, {sum(eager.values())}"
+                  f" eager, by (B, N): " + ", ".join(
+                      f"{b}x{n}: {c}" for (b, n), c
+                      in sorted((replayed + eager).items()))
+                  + f"  [{smi}]")
+    ref = runs["sync_1"]["res"]
+    diff = {}
+    for tag, r in runs.items():
+        res = r["res"]
+        same_t = np.array_equal(res.times, ref.times)
+        diff[tag] = max(
+            float(np.abs(res.final_states - ref.final_states).max()
+                  / np.abs(ref.final_states).max()),
+            float(np.abs(res.errors - ref.errors).max()
+                  / np.abs(ref.errors).max()) if same_t else np.inf)
+    bit = all(np.array_equal(r["res"].final_states, ref.final_states)
+              and np.array_equal(r["res"].errors, ref.errors)
+              for r in runs.values())
+    f1, s1, f2, s2 = (runs[t] for t in ("fast_1", "sync_1", "fast_2",
+                                         "sync_2"))
+    print(f"fast against sync: bit-equal {bit}; max relative difference "
+          f"from sync 1 (final states, errors): " + ", ".join(
+              f"{t} {d:.3e}" for t, d in diff.items())
+          + f"; walls fast {f1['wall']:.2f} / {f2['wall']:.2f} s, sync "
+          f"{s1['wall']:.2f} / {s2['wall']:.2f} s  [{smi}]")
+    _check(all(d <= 1e-12 for d in diff.values()),
+           ("fast vs sync on the bench stream", diff))
+    _check(not any(r["res"].sync_rerun for r in runs.values()), "re-run")
+    _check(f1["captures"] > 0 and f2["captures"] == 0
+           and f2["chain_captures"] == 0 and f2["replays"] > 0
+           and not f2["eager"],
+           ("the second fast stream replays only", f2["captures"],
+            f2["chain_captures"], dict(f2["eager"])))
+    _check(f2["launches"] == s1["launches"] == s2["launches"] > 0
+           and f1["replayed"] == f2["replayed"] == s1["eager"]
+           == s2["eager"],
+           ("K1 launches fast vs sync", f2["launches"], s1["launches"]))
+
+    # a step that reads the host cannot be captured: the capture raises
+    x = torch.ones(4, device=dev)
+
+    def host_read(i, ins, carry):
+        return (carry[0] * float(ins[0].sum()),)
+
+    try:
+        graphs.LoopProgram([x], lambda ins: (ins[0].clone(),), host_read,
+                           range(2), lambda i: 0)
+        raised = None
+    except RuntimeError as err:
+        raised = err
+    torch.cuda.synchronize()
+    print(f"a step reading the host inside a capture: raised "
+          f"{type(raised).__name__}: {str(raised)[:60]}")
+    _check(raised is not None, "a failed capture must raise")
+    return {"k1": {t: r["launches"] for t, r in runs.items()},
+            "wall": {t: r["wall"] for t, r in runs.items()}}
+
+
+def _cache_state() -> str:
+    """The fast path's kept window programs and the card's reserved memory
+    (no device wait), once the port's graph cache is loaded."""
+    import torch
+    graphs = sys.modules.get("vinsat_tpu_torch.estimation.graphs")
+    if graphs is None:
+        return ""
+    return (f"; window programs kept {graphs.kept()} of at most "
+            f"{graphs.MAX_PROGRAMS} ({graphs.stats['captures']} graphs "
+            f"captured, {graphs.stats['evictions']} programs dropped), device "
+            f"memory reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1931,7 +2112,8 @@ def main() -> int:
     from vinsat_tpu_torch import pipeline, run_configs
     from vinsat_tpu_torch.core import dynamics
     from vinsat_tpu_torch.dist import long_arc, mesh
-    from vinsat_tpu_torch.estimation import ba, ingest, refine, window
+    from vinsat_tpu_torch.estimation import (ba, graphs, ingest, refine,
+                                             window)
     from vinsat_tpu_torch.evalx import ate, crlb
     from vinsat_tpu_torch.kernels import (_build, matching, normal_eq,
                                           tridiag_pcr, visible_count)
@@ -1952,7 +2134,7 @@ def main() -> int:
 
     def phase_done(n: int) -> None:
         now = time.time()
-        print(f"phase {n}: {now - phase_t[0]:.1f} s")
+        print(f"phase {n}: {now - phase_t[0]:.1f} s" + _cache_state())
         phase_t[0] = now
 
     # 1. device
@@ -2043,8 +2225,7 @@ def main() -> int:
     solve.launches = k3.launches = 0
     k1_shapes = collections.Counter()
     t0 = time.time()
-    with _k1_recording(
-            lambda D, U, b: k1_shapes.update([tuple(D.shape[:2])])):
+    with _k1_recording(lambda B, N, *_: k1_shapes.update([(B, N)])):
         res = pipeline.run_streaming(fx, seed=seed, cfg=cfg, device=dev)
     wall = time.time() - t0
     k1_launches = solve.launches
@@ -2069,8 +2250,13 @@ def main() -> int:
           + ", ".join(f"{bn[0]}x{bn[1]}: {c}"
                       for bn, c in sorted(k1_shapes.items())))
     _check(sum(k1_shapes.values()) == k1_launches, k1_shapes)
-    print(f"stream wall: {wall:.2f} s (the first stream of the process) -> "
-          f"{DURATION_S / wall:.1f} frames/s  [{smi}]")
+    print(f"stream wall: {wall:.2f} s (the first stream of the process, "
+          f"the fast path: sync_rerun {res.sync_rerun}, window graphs "
+          f"captured {graphs.stats['captures']}, replayed "
+          f"{graphs.stats['replays']}) -> {DURATION_S / wall:.1f} frames/s"
+          f"  [{smi}]")
+    _check(graphs.stats["replays"] > 0 and not res.sync_rerun,
+           "the stream took the fast path")
 
     phase_done(4)
 
@@ -2446,9 +2632,9 @@ def main() -> int:
     k1_shapes4 = collections.Counter()
     k1_first, k1_last = [], []
 
-    def on_launch4(D, U, b):
-        k1_shapes4[tuple(D.shape[:2])] += 1
-        k1_last[:] = [a.clone() for a in (D, U, b)]
+    def on_launch4(B, N, dtype, system):
+        k1_shapes4[(B, N)] += 1
+        k1_last[:] = [a.clone() for a in system]
         if not k1_first:
             k1_first[:] = k1_last
 
@@ -2627,6 +2813,7 @@ def main() -> int:
     def record_stream(run, seq, seed=0, **kw):
         res = run(seq, seed=seed, **kw)
         streamed.append((seq, res, seed))
+        print(f"  run_batch_eval seed {seed} streamed" + _cache_state())
         return res
 
     t0 = time.time()
@@ -2661,10 +2848,10 @@ def main() -> int:
     escape_s = {"init": 0.0, "all": 0.0}
     keep = [False]  # keep the f32 systems of this run
 
-    def on_launch15(D, U, b):
-        k1_by[(str(D.dtype)[6:], D.shape[0], D.shape[1])] += 1
-        if keep[0] and D.dtype == torch.float32:
-            sys_ = [a.clone() for a in (D, U, b)]
+    def on_launch15(B, N, dtype, system):
+        k1_by[(str(dtype)[6:], B, N)] += 1
+        if keep[0] and dtype == torch.float32:
+            sys_ = [a.clone() for a in system]
             k1_sys32[:] = [k1_sys32[0] if k1_sys32 else sys_, sys_]
 
     def timed(key):
@@ -2680,7 +2867,10 @@ def main() -> int:
 
     def stream32(seq_in, s, cfg_in, record=False):
         """One f32 stream with K1's launches by dtype and shape and the
-        seconds in the f64 escapes recorded: (result, wall s)."""
+        seconds in the f64 escapes recorded: (result, wall s).  record:
+        keep the run's first and last f32 systems, through the sync path
+        (fast=False), whose K1 launches are eager: the fast path's replay
+        systems that live in its graphs' memory."""
         k1_by.clear()
         escape_s.update(init=0.0, all=0.0)
         solve.launches = 0
@@ -2689,36 +2879,52 @@ def main() -> int:
         with _k1_recording(on_launch15), \
                 _patched(window, "_window0_init_f64", timed("init")), \
                 _patched(window, "_solve_window_f64", timed("all")):
-            r = pipeline.run_streaming(seq_in, seed=s, cfg=cfg_in,
-                                       device=dev)
+            r = window.stream_orbit(*pipeline.stream_inputs(seq_in), seed=s,
+                                    cfg=cfg_in, device=dev,
+                                    fast=False if record else None)
         return r, time.time() - t0
 
-    res32, cold32 = stream32(fx, seed, cfg32, record=True)
+    # the gated stream: the default (fast) path
+    res32, cold32 = stream32(fx, seed, cfg32)
     k1_launches32 = solve.launches
     by32 = dict(k1_by)
     esc32 = dict(escape_s)
     t5_32 = ate.time_to_threshold(res32.errors, res32.times, 5.0)
     final32 = float(res32.errors[-1])
     jax32 = float(md["f32_final_error_km"])
-    print(f"f32 stream: {nw} windows, time_to_5km_s {t5_32} (JAX f64 "
-          f"{ref_t5}, JAX f32 {float(md['f32_time_to_5km_s'])}), "
+    # K1's systems from the same stream on the sync path
+    sync32, wall_s32 = stream32(fx, seed, cfg32, record=True)
+    k1_sync32 = solve.launches
+    final_s32 = float(sync32.errors[-1])
+    print(f"f32 stream (the default fast path: sync_rerun "
+          f"{res32.sync_rerun}): {nw} windows, time_to_5km_s {t5_32} (JAX "
+          f"f64 {ref_t5}, JAX f32 {float(md['f32_time_to_5km_s'])}), "
           f"final_error_km {final32:.6f} (JAX f64 {ref_final:.6f}, JAX f32 "
-          f"{jax32:.6f}, port f64 {final:.6f}), recovery_trips "
-          f"{res32.recovery_trips} (JAX f32 {int(md['f32_recovery_trips'])})")
-    print(f"f32 stream wall: {cold32:.2f} s (f64, phase 4: {wall:.2f} s); "
-          f"f64 escapes {esc32['all']:.2f} s, of which window 0's "
-          f"init {esc32['init']:.2f} s  [{smi}]")
-    print(f"f32 stream: K1 launches {k1_launches32}, by (dtype, B, N): "
+          f"{jax32:.6f}, port f64 {final:.6f}, port f32 sync path "
+          f"{final_s32:.6f}), recovery_trips {res32.recovery_trips} (JAX f32 "
+          f"{int(md['f32_recovery_trips'])})")
+    print(f"f32 stream wall: {cold32:.2f} s fast (its graphs captured), "
+          f"{wall_s32:.2f} s sync (f64, phase 4: {wall:.2f} s); f64 escapes "
+          f"{esc32['all']:.2f} s, of which window 0's init "
+          f"{esc32['init']:.2f} s  [{smi}]")
+    print(f"f32 stream: K1 launches {k1_launches32} (sync path "
+          f"{k1_sync32}), by (dtype, B, N): "
           + ", ".join(f"{k[0]} {k[1]}x{k[2]}: {c}"
                       for k, c in sorted(by32.items())))
-    _check(np.isfinite(res32.errors).all()
-           and np.isfinite(res32.final_states).all(), "f32 stream finite")
-    _check(len(res32.times) == len(fx["times"])
-           and np.array_equal(res32.times, fx["times"]), "f32 windows")
-    _check(t5_32 == ref_t5 == 275.0, ("f32 time to 5 km", t5_32))
-    _check(abs(final32 - ref_final) <= 0.01 and abs(final32 - jax32) <= 0.01
-           and abs(final32 - final) <= 0.01,
-           ("f32 final error", final32, ref_final, jax32, final))
+    _check(not res32.sync_rerun and res32.recovery_trips == 0
+           == int(md["f32_recovery_trips"]), ("f32 stream took the fast "
+                                              "path", res32.sync_rerun))
+    for r in (res32, sync32):
+        t5_r = ate.time_to_threshold(r.errors, r.times, 5.0)
+        _check(np.isfinite(r.errors).all()
+               and np.isfinite(r.final_states).all(), "f32 stream finite")
+        _check(len(r.times) == len(fx["times"])
+               and np.array_equal(r.times, fx["times"]), "f32 windows")
+        _check(t5_r == ref_t5 == 275.0, ("f32 time to 5 km", t5_r))
+        f_r = float(r.errors[-1])
+        _check(abs(f_r - ref_final) <= 0.01 and abs(f_r - jax32) <= 0.01
+               and abs(f_r - final) <= 0.01,
+               ("f32 final error", f_r, ref_final, jax32, final))
     n32 = sum(c for k, c in by32.items() if k[0] == "float32")
     _check(n32 > 0 and sum(by32.values()) == k1_launches32,
            ("K1 in f32 on the stream", by32))
@@ -2774,15 +2980,16 @@ def main() -> int:
         seq3, seed, cfg32._replace(recover_rms_px=1e-3, max_iters=0))
     _, nw_esc = n_windows(*pipeline.stream_inputs(seq3), seed)
     print(f"f32 forced escalation (config 3's sequence, recover_rms_px "
-          f"1e-3, max_iters 0): {nw_esc} windows, recovery_trips "
-          f"{res_esc.recovery_trips}, min error "
+          f"1e-3, max_iters 0; the default fast stream, run again in sync "
+          f"mode: sync_rerun {res_esc.sync_rerun}): {nw_esc} windows, "
+          f"recovery_trips {res_esc.recovery_trips}, min error "
           f"{float(res_esc.errors.min()):.6f} km, final "
           f"{float(res_esc.errors[-1]):.6f} km; f64 escapes "
           f"{escape_s['all']:.2f} s of {wall_esc:.2f} s; K1 by (dtype, B, "
           f"N): " + ", ".join(f"{k[0]} {k[1]}x{k[2]}: {c}"
                               for k, c in sorted(k1_by.items()))
           + f"  [{smi}]")
-    _check(res_esc.recovery_trips == nw_esc >= 2
+    _check(res_esc.sync_rerun and res_esc.recovery_trips == nw_esc >= 2
            and np.isfinite(res_esc.errors).all()
            and float(res_esc.errors.min()) < 2.0,
            ("forced escalation", res_esc.recovery_trips, nw_esc))
@@ -2801,9 +3008,10 @@ def main() -> int:
 
     k1_last16 = []
 
-    def on_launch16(D, U, b):
-        k1_by[(str(D.dtype)[6:], D.shape[0], D.shape[1])] += 1
-        k1_last16[:] = [a.clone() for a in (D, U, b)]
+    def on_launch16(B, N, dtype, system):
+        k1_by[(str(dtype)[6:], B, N)] += 1
+        if system is not None:  # config 3's BA-only stream replays graphs
+            k1_last16[:] = [a.clone() for a in system]
 
     def run_config(tag, fn, *a, **kw):
         """A runner on the card: (its dict, K1 by (dtype, B, N), the
@@ -2981,6 +3189,15 @@ def main() -> int:
     p23 = _phase23(dev, smi)
     phase_done(23)
 
+    # 24. the stream's fast dispatch against its sync path
+    p24 = _phase24(dev, smi)
+    phase_done(24)
+    # the fast path's graph cache stayed within its bound all along (its
+    # state after every phase is on that phase's line)
+    from vinsat_tpu_torch.estimation import graphs
+    _check(graphs.kept() <= graphs.MAX_PROGRAMS,
+           ("window programs kept", graphs.kept()))
+
     print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
     k3_ms, k3_plain_ms, k3_bound, k3_dev = k3_times[("regions", "float64")]
     print(json.dumps({"kernels": [
@@ -2991,7 +3208,10 @@ def main() -> int:
          "library_ms": k1_lib_ms,
          "design": "one cooperative launch, a grid barrier per PCR level",
          "device_kernels_per_call": k1_rows[(448, "float64")][3],
-         "launches_by_path": {"stream": k1_launches, "own_arc": k1_main,
+         "launches_by_path": {"stream": k1_launches,
+                              "stream_fast": p24["k1"]["fast_2"],
+                              "stream_sync": p24["k1"]["sync_2"],
+                              "own_arc": k1_main,
                               "constellation": k1_launches4,
                               "eval_orbit": k1_14, "batch_eval": k1_ev,
                               "f32_stream": k1_launches32,

@@ -4,17 +4,16 @@ and the stream driver's NEES tracking, on the same inputs (f64, CPU).
 Bounds: every calibration function within 1e-12 relative of JAX's on
 states and information matrices drawn from a numpy seed.  The NEES streams
 run test_torch_stream.py's gapped 3600 s arc at the fixed 20-iteration budget
-(max_iters=0) against JAX with its Thomas solve: the same recorded times,
+(max_iters=0) against JAX with its Thomas solve (JAX's run committed in
+tests/data/torch_jax_runs_seed1.npz): the same recorded times,
 each window's terminal marginal within 1e-6 relative (Frobenius) of
 JAX's, its estimate within 1e-6 km and its GT equal to 1e-12.  The
 auto-calibrated bounded stream runs in tests/test_torch_checkpoint.py."""
 import numpy as np
 import pytest
 
-from torch_parity import random_states, torch_one_thread  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
-from vinsat_tpu.estimation import ba as jba
-from vinsat_tpu.estimation import window as jwindow
+from torch_parity import (jax_runs, jax_runs_arc,  # noqa: F401
+                          random_states, torch_one_thread)
 from vinsat_tpu.evalx import calibration as jcal
 from vinsat_tpu_torch.estimation import window
 from vinsat_tpu_torch.evalx import calibration
@@ -94,12 +93,11 @@ def test_floors_from_inflation_matches_jax():
 
 
 def test_track_nees_stream_matches_jax():
-    seq = jpipeline.simulate_sequence(1, **SIM_KW)
+    # JAX's stream of the SIM_KW arc with these kw and its Thomas solve is
+    # committed (tests/data/make_torch_jax_runs_fixture.py, "nees")
+    seq = jax_runs_arc()
     kw = dict(max_iters=0, track_nees=True)
-    want = jwindow.stream_orbit(
-        seq.det_rows, seq.orbit_pos_eci_km, seed=1,
-        cfg=jwindow.StreamingConfig(**kw),
-        solver=jba.SolverParams(tridiag_variant="thomas"))
+    want = jax_runs("nees")
     got = window.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km, seed=1,
                               cfg=window.StreamingConfig(**kw), device="cpu")
     np.testing.assert_array_equal(got.times, want.times)

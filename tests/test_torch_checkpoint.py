@@ -14,14 +14,12 @@ the port's own checkpoint of any window equals the uninterrupted one
 tests/test_streaming.py); a run resumed from the other package's
 checkpoint gives that package's uninterrupted times, and errors within
 1e-3 km of them."""
-import functools
 import os
 
 import numpy as np
 import pytest
 
-from torch_parity import torch_one_thread  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
+from torch_parity import jax_runs_arc, torch_one_thread  # noqa: F401
 from vinsat_tpu.estimation import ba as jba
 from vinsat_tpu.estimation import window as jwindow
 from vinsat_tpu.utils import checkpoint as jckpt
@@ -71,9 +69,10 @@ def test_checkpoint_file_crosses_packages(tmp_path, writer, reader, hessian):
     assert (got["last_hessian"] is None) == (not hessian)
 
 
-@functools.lru_cache(maxsize=1)
 def _seq():
-    return jpipeline.simulate_sequence(1, **SIM_KW)
+    # JAX's simulation of the SIM_KW arc, committed (tests/data/
+    # make_torch_jax_runs_fixture.py)
+    return jax_runs_arc()
 
 
 def _port(ck=None, resume=None):

@@ -81,12 +81,6 @@ NOT_PORTED = {
                                  "lays shards out as a dimension",
     "dist/mesh.py:batch_arc_sharding": "a NamedSharding helper; the port's "
                                        "Mesh lays shards out as a dimension",
-    "estimation/window.py:_prop_window_fast": "the stream's async fast "
-                                              "dispatch, a dispatch mode "
-                                              "and no other maths",
-    "estimation/window.py:_end_stats": "the stream's async fast dispatch",
-    "estimation/window.py:_fast_window_full": "the stream's async fast "
-                                              "dispatch",
     "tools/raster.py:RasterImageServer.load_npy": "neither package calls "
                                                   "it",
     "tools/raster.py:RasterImageServer.load_rasterio": "neither package "

@@ -2,8 +2,9 @@
 package on the CPU, f64: `ba_iteration` over an orbit axis against each
 orbit's own call and against `jax.vmap` of JAX's, the per-orbit λ search,
 the batched LM loop, `solve_window_batch`, and `run_constellation`'s
-preparation and solve fed JAX-simulated sequences; and the committed
-fixture the card's smoke run holds config 4 to.
+preparation and solve fed JAX-simulated sequences (JAX's sequences and
+runs of them committed in tests/data/torch_jax_runs_seed1.npz); and the
+committed fixture the card's smoke run holds config 4 to.
 
 Bounds: a batch against each orbit's own call 1e-12 relative (the same
 arithmetic; the block products may sum in another order); against JAX
@@ -17,6 +18,7 @@ the port's PCR and JAX's Thomas agree to ~1e-8 km."""
 import functools
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,9 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import orbit_problem, perturb, rel_err
+from torch_parity import jax_runs, orbit_problem, perturb, rel_err
 from torch_parity import torch_one_thread  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
 from vinsat_tpu.estimation import ba as jba
 from vinsat_tpu.estimation import window as jwindow
 from vinsat_tpu_torch import pipeline
@@ -238,55 +239,45 @@ def test_best_iterate_tracks_each_orbit():
             assert rel_err(g[i], w) <= 1e-12, i
 
 
-@functools.lru_cache(maxsize=None)
+# JAX's sequences, run_constellation results and solve_window_batch runs
+# of the two tests below are committed (tests/data/
+# make_torch_jax_runs_fixture.py, "const"): compiling them took the most
+# of this module's time
 def _jax_sequences(seeds, along_track=True):
-    return [jpipeline.simulate_sequence(s, 600, along_track=along_track,
-                                        frame_stride=5) for s in seeds]
+    mode = "track" if along_track else "region"
+    return [types.SimpleNamespace(**{
+        k: v for k, v in vars(jax_runs(f"const_{mode}_seq{s}")).items()})
+        for s in seeds]
 
 
-def _jax_constellation(seeds, num_iters, along_track, monkeypatch):
-    """JAX's run_constellation at 600 s with the Thomas solve, and the
-    arguments of its solve_window_batch call."""
-    real = jwindow.solve_window_batch
-    rec = {}
-
-    def thomas(states_b, prob_b, lamda_b, init_iters, n, params,
-               sched_offset=0):
-        params = params._replace(tridiag_variant="thomas")
-        rec.update(args=(states_b, prob_b, lamda_b), params=params)
-        return real(states_b, prob_b, lamda_b, init_iters, n, params,
-                    sched_offset=sched_offset)
-
-    monkeypatch.setattr(jwindow, "solve_window_batch", thomas)
-    res = jpipeline.run_constellation(list(seeds), 600, num_iters=num_iters,
-                                      init_iters=2, along_track=along_track)
-    return res, rec
+def _jax_constellation(seeds, along_track):
+    """JAX's run_constellation at 600 s (4 iterations, 2 vision-only) with
+    the Thomas solve: the fixture's record of it."""
+    return jax_runs("const_track" if along_track else "const_region")
 
 
-def test_solve_window_batch_matches_jax(monkeypatch):
+def test_solve_window_batch_matches_jax():
     seeds = (0, 1, 2)
-    _, rec = _jax_constellation(seeds, 4, True, monkeypatch)
+    j = vars(jax_runs("const"))
     batch = pipeline._prepare_constellation(
         seeds, _jax_sequences(seeds), 600, window.StreamingConfig(), None,
         None, "cpu")
-    states_b, prob_b, lamda_b = rec["args"]
-    assert rel_err(batch.states0, np.asarray(states_b)) <= 1e-12
+    states_b = j["states_b"]
+    assert rel_err(batch.states0, states_b) <= 1e-12
     for f in ba.BAProblem._fields:
         np.testing.assert_allclose(getattr(batch.prob, f).numpy(),
-                                   np.asarray(getattr(prob_b, f)), rtol=1e-12,
-                                   atol=1e-9)
-    assert batch.params == ba.SolverParams(**rec["params"]._replace(
-        tridiag_variant="auto")._asdict())
+                                   j[f"prob_{f}"], rtol=1e-12, atol=1e-9)
+    params = json.loads(str(j["params"]))
+    assert params["tridiag_variant"] == "thomas"
+    assert batch.params == ba.SolverParams(**dict(params,
+                                                  tridiag_variant="auto"))
     for n, tol in ((1, 1e-9), (4, 1e-6)):
         got = window.solve_window_batch(batch.states0, batch.prob,
                                         batch.lamda, 2, n, batch.params,
                                         sched_offset=-2)
-        want = jwindow.solve_window_batch(
-            states_b, prob_b, lamda_b, jnp.asarray(2), n, rec["params"],
-            sched_offset=jnp.asarray(-2))
-        for name, g, w in zip(("states", "lamda", "last_hessian",
-                               "mean_residual"), got, want):
-            assert rel_err(g, np.asarray(w)) <= tol, (n, name)
+        for name, g in zip(("states", "lamda", "last_hessian",
+                            "mean_residual"), got):
+            assert rel_err(g, j[f"solve{n}_{name}"]) <= tol, (n, name)
 
 
 @pytest.mark.parametrize("along_track,seeds", [
@@ -294,18 +285,18 @@ def test_solve_window_batch_matches_jax(monkeypatch):
     # region DB: seeds 0 and 2 image nothing in 600 s and are skipped,
     # drawing no initial noise
     (False, (0, 1, 2, 3))])
-def test_constellation_matches_jax(along_track, seeds, monkeypatch):
-    want, _ = _jax_constellation(seeds, 4, along_track, monkeypatch)
+def test_constellation_matches_jax(along_track, seeds):
+    want = _jax_constellation(seeds, along_track)
     got = pipeline.constellation_from_sequences(
         seeds, _jax_sequences(seeds, along_track), 600, num_iters=4,
         init_iters=2, device="cpu")
-    assert set(got) == set(want)
-    assert got["num_orbits"] == want["num_orbits"] >= 2
-    assert got["orbit_seeds"] == want["orbit_seeds"]
+    assert set(got) == set(want.keys.tolist())
+    assert got["num_orbits"] == int(want.num_orbits) >= 2
+    assert got["orbit_seeds"] == want.orbit_seeds.tolist()
     if not along_track:
         assert len(got["orbit_seeds"]) < len(seeds)
     np.testing.assert_allclose(got["median_errors_km"],
-                               want["median_errors_km"], rtol=0, atol=1e-6)
+                               want.median_errors_km, rtol=0, atol=1e-6)
     assert got["orbit_frames_per_s"] == pytest.approx(
         got["num_orbits"] * 600 / got["wall_s"])
 

@@ -21,6 +21,13 @@ CPU, to move by < 1e-10 under a 1e-15 perturbation of their initial
 states, so that the 1e-9 measures the port and not the problem: the
 only tests here that run without a card.
 
+The stream's fast path on the card: window 0 of the committed bench arc
+solved by replaying its captured LM iterations
+(window._solve_window_fast), in f64 and f32, with and without the early
+stop (frozen to max_iters in the graphs): equal to the eager loop bit for
+bit under torch's deterministic kernels; a second solve captures nothing,
+and K1's launches are counted at each replay (one a batched λ search).
+
 The f32 stream on the card: K1 in f32 on the stream's first system
 (window 0 of the committed bench arc from its f64 warm start, B=9 λ
 candidates, N=64), recorded there, against its twin: relative 1e-4
@@ -414,6 +421,48 @@ def _bench_window0(d, dtype):
     st32, prob32 = pad("cpu", torch.float32)
     warm = window._window0_init_f64(st32, prob32, 1e-4, 10, params)
     return warm.to(device=d, dtype=dtype), pad(d, dtype)[1], params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_captured_lm_iterations_match_eager(dtype, early_stop):
+    # the stream's fast path on the card: a window's LM iterations replayed
+    # from their captured graphs (window._solve_window_fast) equal the eager
+    # loop bit for bit under deterministic kernels; a second solve of the
+    # same key captures nothing; K1's launches are counted at each replay
+    from vinsat_tpu_torch.estimation import graphs, window
+
+    dev = _cuda()
+    st0, prob, params = _bench_window0(dev, dtype)
+    params = params._replace(max_iters=7, **(dict(conv_patience=1)
+                                            if early_stop else {}))
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        n0 = solve.launches
+        eager = window._solve_window(st0, prob, 1e-4, 0, 4, params)
+        n_eager = solve.launches - n0
+        graphs.clear()
+        fast = []
+        for _ in range(2):
+            captures, n0 = graphs.stats["captures"], solve.launches
+            fast.append(window._solve_window_fast(st0, prob, 1e-4, 0, 4,
+                                                  params))
+            torch.cuda.synchronize()
+            fast[-1] += (graphs.stats["captures"] - captures,
+                         solve.launches - n0)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for got in fast:
+        for a, b in zip(got[:4], eager):
+            assert torch.equal(a, b)
+    assert fast[0][4] >= 2 and fast[1][4] == 0  # the second replays only
+    # frozen to max_iters (7) where the eager loop may stop sooner; every
+    # iteration one batched λ solve at N = 64
+    assert fast[1][5] == (7 if early_stop else n_eager) and n_eager > 0
+    assert fast[0][5] >= fast[1][5]  # and the capture's warm-up runs
 
 
 @pytest.mark.cuda

@@ -11,7 +11,8 @@ states (as the single-chip step in tests/test_torch_ba.py) and the λ
 equal.  With use_pallas_assembly both assemble in f32 (the Pallas kernel in
 interpret mode, the port's K2 twin), at tests/test_kernels.py's tolerance
 for that path.  Each JAX result is computed once per module: a shard_map
-compile costs seconds.
+compile costs seconds; JAX's steps of the four step cases and its SPIKE
+solve are committed (tests/data/torch_jax_runs_seed1.npz).
 """
 import functools
 
@@ -23,10 +24,10 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from test_sharded_ba import INTR, _build_problem
-from torch_parity import random_states, rel_err, torch_one_thread  # noqa: F401
+from torch_parity import (jax_runs, random_states, rel_err,  # noqa: F401
+                          torch_one_thread)
 from vinsat_tpu.dist import mesh as jmesh
 from vinsat_tpu.dist import sharded_ba as jsba
-from vinsat_tpu.dist import tridiag as jtri
 from vinsat_tpu.estimation import ba as jba
 from vinsat_tpu.kernels import normal_eq as jne
 from vinsat_tpu_torch.dist import mesh, sharded_ba, tridiag
@@ -118,10 +119,11 @@ def _tridiag_system(rng, N, k=9):
     return D, U, rng.normal(size=(N, k))
 
 
-def test_sharded_tridiag_matches_jax(jax_mesh):
+def test_sharded_tridiag_matches_jax():
     D, U, b = _tridiag_system(np.random.default_rng(2), 20)
-    want = np.asarray(jtri.sharded_block_tridiag_solve(
-        jax_mesh, jnp.asarray(D), jnp.asarray(U), jnp.asarray(b)))
+    # JAX's solve of this system on the 4-device mesh, committed
+    # (tests/data/make_torch_jax_runs_fixture.py)
+    want = jax_runs("dist").tridiag_want
     m = mesh.make_mesh(1, N_ARC, device="cpu")
     Dt, Ut, bt = (torch.as_tensor(a) for a in (D, U, b))
     got = tridiag.sharded_block_tridiag_solve(m, Dt, Ut, bt)
@@ -202,19 +204,18 @@ STEP_CASES = [(0, 0.0, 16), (3, 0.0, 16), (0, 1.0, 16), (3, 0.0, 14)]
 
 
 @pytest.fixture(scope="module")
-def jax_steps(jax_mesh):
-    """JAX's sharded step on each case (one compile for all)."""
-    params = jba.SolverParams(**PARAMS)
-    step = jsba.make_sharded_ba_step(jax_mesh, params)
+def jax_steps():
+    """JAX's sharded step on each case's problem, committed with the
+    problem's fields (tests/data/make_torch_jax_runs_fixture.py: a
+    shard_map compile costs a minute)."""
+    j = vars(jax_runs("dist"))
     out = {}
-    for case in STEP_CASES:
-        it, init, n_real = case
-        fields = _problem_fields(np.random.default_rng(0), n_real)
-        prob = jsba.ShardedProblem(**{k: jnp.asarray(v)
-                                      for k, v in fields.items()})
-        st, lam = step(jnp.asarray(it), jnp.full((1,), 1e-4), prob,
-                       initialize=init)
-        out[case] = (fields, np.asarray(st), np.asarray(lam))
+    for c, case in enumerate(STEP_CASES):
+        assert list(j[f"step{c}_case"]) == list(case)
+        head = f"step{c}_field_"
+        fields = {k[len(head):]: v for k, v in j.items()
+                  if k.startswith(head)}
+        out[case] = (fields, j[f"step{c}_st"], j[f"step{c}_lam"])
     return out
 
 

@@ -26,25 +26,24 @@ pieces, and configs 2, 4 and 5(a) in f32, on the CPU.
     every knot within 0.02 km and the median within 0.01 km of JAX's f32
     solve; the constellation after 20: each orbit's median within 0.01 km
     (JAX's own f32 run lies up to 0.012 km from its f64 one there; after
-    4 iterations, 0.34 km)."""
+    4 iterations, 0.34 km).
+
+JAX's window-solver runs, short arcs and f32 runs (its Thomas solve for
+the full batch and the constellation) are committed in
+tests/data/torch_jax_runs_seed1.npz (tests/data/
+make_torch_jax_runs_fixture.py): their compiles took the most of this
+module's time."""
 import functools
 import json
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from test_sharded_ba import INTR, _build_problem
-from torch_parity import rel_err, torch_one_thread  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
-from vinsat_tpu.dist import long_arc as jla
-from vinsat_tpu.dist import mesh as jmesh
-from vinsat_tpu.dist import sharded_ba as jsba
+from torch_parity import jax_runs, rel_err, torch_one_thread  # noqa: F401
 from vinsat_tpu.dist import stream as jds
-from vinsat_tpu.estimation import ba as jba
-from vinsat_tpu.estimation import window as jwindow
 from vinsat_tpu_torch import pipeline
 from vinsat_tpu_torch.dist import long_arc, mesh, sharded_ba
 from vinsat_tpu_torch.dist import stream as ds
@@ -85,13 +84,6 @@ def _case():
     return fields, (prop, Hs, Hr, val)
 
 
-def _jax_inputs(fields, prior):
-    prob = jsba.ShardedProblem(
-        **{k: jnp.asarray(v)[None] for k, v in fields.items()},
-        intrinsics=INTR)
-    return prob, jsba.ShardedPrior(*(jnp.asarray(a)[None] for a in prior))
-
-
 def _port_inputs(fields, prior, P):
     f = {k: v[None] for k, v in fields.items()}
     f["intrinsics"] = np.asarray(INTR)
@@ -102,16 +94,13 @@ def _port_inputs(fields, prior, P):
     return prob, pri
 
 
-@functools.lru_cache(maxsize=None)
 def _jax_solve(P, num_iters, max_iters, init_iters, with_prior):
-    fields, prior = _case()
-    prob, pri = _jax_inputs(fields, prior)
-    solve = jsba.make_sharded_window_solver(
-        jmesh.make_mesh(n_orbit=1, n_arc=P),
-        jba.SolverParams(max_iters=max_iters, **PARAMS),
-        num_iters=num_iters, init_iters=init_iters, with_prior=with_prior)
-    out = solve(jnp.full((1,), 1e-4), prob, pri if with_prior else None)
-    return tuple(np.asarray(o) for o in out)
+    """JAX's sharded window solver on the case, committed (tests/data/
+    make_torch_jax_runs_fixture.py: a compile a configuration)."""
+    key = "_".join(str(int(a)) for a in (P, num_iters, max_iters,
+                                         init_iters, with_prior))
+    j = vars(jax_runs(f"dstream_solve_{key}"))
+    return tuple(j[str(i)] for i in range(3))
 
 
 def _port_solve(P, num_iters, max_iters, init_iters, with_prior):
@@ -228,17 +217,6 @@ def test_dispatch_routes(monkeypatch):
 F32 = dict(dtype="float32")
 
 
-@pytest.fixture
-def jax_thomas(monkeypatch):
-    """JAX's runners with their Thomas solve: they build their own
-    SolverParams, whose f64 and CPU-f32 "auto" at 64 <= N is bcr16, which
-    departs from Thomas (and from the port's PCR) in the first dynamics
-    iterations (test_torch_constellation.py)."""
-    orig = jba.SolverParams
-    monkeypatch.setattr(jba, "SolverParams", lambda **kw: orig(
-        **dict(kw, tridiag_variant="thomas")))
-
-
 def _f32_close(got, want):
     """f32 solves of the same problem: every knot within 0.02 km, the
     medians within 0.01 km (the full batch reads 0.0118 and 0.0086 km on
@@ -248,55 +226,44 @@ def _f32_close(got, want):
     assert abs(np.median(got) - np.median(want)) < 0.01
 
 
-@functools.lru_cache(maxsize=1)
 def _seq600():
-    return jpipeline.simulate_sequence(1, duration_s=600, frame_stride=10,
-                                       along_track=True)
+    """JAX's 600 s along-track arc (frame_stride 10), committed with its
+    runs (tests/data/make_torch_jax_runs_fixture.py, "dstream")."""
+    return (jax_runs("dstream_seq600").det_rows,
+            jax_runs("dstream_seq600").orbit_pos_eci_km)
 
 
-def test_run_full_batch_f32_matches_jax(jax_thomas):
+def test_run_full_batch_f32_matches_jax():
     seq = _seq600()
     kw = dict(seed=1, num_iters=40, init_iters=10)  # config 2's count
-    want = jpipeline.run_full_batch(seq, cfg=jwindow.StreamingConfig(**F32),
-                                    **kw)
-    got = pipeline.run_full_batch(
-        (np.asarray(seq.det_rows), np.asarray(seq.orbit_pos_eci_km)),
-        cfg=window.StreamingConfig(**F32), device="cpu", **kw)
+    # JAX's f32 run_full_batch with its Thomas solve (the fixture's)
+    j = vars(jax_runs("dstream_fullbatch"))
+    want = tuple(j[str(i)] for i in range(3))
+    got = pipeline.run_full_batch(seq, cfg=window.StreamingConfig(**F32),
+                                  device="cpu", **kw)
     assert got[0].dtype == np.float32
     np.testing.assert_array_equal(got[1], want[1])
     _f32_close(np.linalg.norm(got[0][:, :3] - got[2][:, :3], axis=-1),
                np.linalg.norm(want[0][:, :3] - want[2][:, :3], axis=-1))
 
 
-def test_prepare_constellation_f32_matches_jax(monkeypatch, jax_thomas):
-    seqs = [jpipeline.simulate_sequence(s, 300, along_track=True,
-                                        frame_stride=5) for s in (0, 1)]
-    rec = {}
-    real = jwindow.solve_window_batch
-
-    def capture(states_b, prob_b, lamda_b, *a, **k):
-        rec.update(states=np.asarray(states_b), prob=prob_b,
-                   lamda=np.asarray(lamda_b))
-        return real(states_b, prob_b, lamda_b, *a, **k)
-
-    monkeypatch.setattr(jwindow, "solve_window_batch", capture)
-    monkeypatch.setattr(jpipeline, "simulate_sequence",
-                        lambda s, *a, **k: seqs[s])
+def test_prepare_constellation_f32_matches_jax():
+    # JAX's 300 s arcs of seeds 0 and 1, its f32 run_constellation of them
+    # (Thomas solve) and the arguments of its solve_window_batch call, from
+    # the fixture
+    j = vars(jax_runs("dstream_const"))
+    inputs = [(q.det_rows, q.orbit_pos_eci_km)
+              for q in (jax_runs(f"dstream_const{s}") for s in (0, 1))]
     kw = dict(num_iters=20, init_iters=10)
-    want = jpipeline.run_constellation([0, 1], 300,
-                                       cfg=jwindow.StreamingConfig(**F32),
-                                       **kw)
-    inputs = [(np.asarray(q.det_rows), np.asarray(q.orbit_pos_eci_km))
-              for q in seqs]
     batch = pipeline._prepare_constellation(
         [0, 1], inputs, 300, window.StreamingConfig(**F32), None, None, "cpu")
     assert batch.states0.dtype == torch.float32
     # the same f64 conditioning rounded to f32 (one cum_rot entry of
     # ~1e-18 rounds apart)
-    np.testing.assert_array_equal(batch.states0.numpy(), rec["states"])
-    np.testing.assert_array_equal(batch.lamda.numpy(), rec["lamda"])
+    np.testing.assert_array_equal(batch.states0.numpy(), j["states"])
+    np.testing.assert_array_equal(batch.lamda.numpy(), j["lamda"])
     for name in ba.BAProblem._fields:
-        w = np.asarray(getattr(rec["prob"], name))
+        w = j[f"prob_{name}"]
         np.testing.assert_allclose(
             getattr(batch.prob, name).numpy().astype(w.dtype), w, rtol=1e-6,
             atol=1e-12, err_msg=name)
@@ -304,7 +271,7 @@ def test_prepare_constellation_f32_matches_jax(monkeypatch, jax_thomas):
         [0, 1], inputs, 300, cfg=window.StreamingConfig(**F32),
         device="cpu", **kw)
     np.testing.assert_allclose(got["median_errors_km"],
-                               want["median_errors_km"], rtol=0, atol=0.01)
+                               j["median_errors_km"], rtol=0, atol=0.01)
 
 
 def test_long_arc_f32_problem_matches_jax():
@@ -312,20 +279,18 @@ def test_long_arc_f32_problem_matches_jax():
     the card (chip_smoke.py phase 19, config 5(a)'s full arc)."""
     seq = _seq600()
     kw = dict(noise_pos_km=20.0)
-    jprob, jgt, jkt, jn = jla.build_sharded_problem(
-        seq, n_arc=4, dtype=jnp.float32, **kw)
+    jprob = jax_runs("dstream_longarc32")  # JAX's f32 build, committed
     prob, gt, kt, n = long_arc.build_sharded_problem(
-        (np.asarray(seq.det_rows), np.asarray(seq.orbit_pos_eci_km)),
-        n_arc=4, dtype=torch.float32, device="cpu", **kw)
+        seq, n_arc=4, dtype=torch.float32, device="cpu", **kw)
     assert prob.states.dtype == torch.float32
     for name in ("states", "gaps", "cum_rot", "lm_xyz", "uv", "conf",
                  "obs_valid", "pair_valid"):
-        w = np.asarray(getattr(jprob, name))
+        w = getattr(jprob, name)
         np.testing.assert_allclose(
             getattr(prob, name).reshape(w.shape).numpy(), w, rtol=1e-6,
             atol=1e-12, err_msg=name)
-    np.testing.assert_array_equal(kt, jkt)
-    assert n == jn
+    np.testing.assert_array_equal(kt, jprob.knot_t)
+    assert n == int(jprob.n_real)
 
 
 def test_fixture_is_complete():

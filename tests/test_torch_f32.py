@@ -1,4 +1,6 @@
-"""PyTorch port vs JAX: f32 streams with their f64 escapes (CPU).
+"""PyTorch port vs JAX: f32 streams with their f64 escapes (CPU).  JAX's
+simulation of test_torch_stream.py's gapped arc, its window 0 and its
+streams there are committed (tests/data/torch_jax_runs_seed1.npz).
 
 * `_window0_init_f64` against JAX's `_window0_init_f64_cpu` from the same
   f32 window 0 of test_torch_stream.py's gapped arc, and
@@ -9,26 +11,21 @@
   against JAX's f32 stream: the same recorded times (hence windows), time
   to 5 km equal, final error within 0.01 km (f32 roundoff differs between
   the two, so only outcomes are compared).
-* A forced escalation (recover_rms_px=1e-3, no window can pass): every
+* A forced escalation (recover_rms_px=1e-3, no window can pass): the
+  default stream's fast path measures every window's RMS above the gate
+  and runs the stream again in sync mode (`sync_rerun`), where every
   window trips and is solved a third time in f64; each window keeps the
   candidate of least reprojection RMS among the first solve, the damped
   retry and the f64 solve cast to f32, as in JAX (on this arc the f64 one
   wins three windows of four, the damped retry one); finite, min error
   < 2 km (the JAX package's test_rms_gate_f64_escalation bound).
 * `marginalize` in f32: finite, JAX's recorded times."""
-import functools
-
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from test_torch_prior import _case, _jprior, _prior
-from torch_parity import (jax_problem, numpy_fields, rel_err,  # noqa: F401
+from test_torch_prior import _case, _prior
+from torch_parity import (jax_runs, jax_runs_arc, rel_err,  # noqa: F401
                           torch_one_thread)
-from vinsat_tpu import pipeline as jpipeline
-from vinsat_tpu.estimation import ba as jba
-from vinsat_tpu.estimation import ingest as jingest
-from vinsat_tpu.estimation import window as jwindow
 from vinsat_tpu.evalx import ate as jate
 from vinsat_tpu_torch import pipeline
 from vinsat_tpu_torch.estimation import ba, ingest, window
@@ -39,9 +36,10 @@ SIM_KW = dict(duration_s=3600, frame_stride=10, along_track=True,
 F32 = torch.float32
 
 
-@functools.lru_cache(maxsize=1)
 def _seq():
-    return jpipeline.simulate_sequence(1, **SIM_KW)
+    # JAX's simulation of the SIM_KW arc, committed with its streams
+    # (tests/data/make_torch_jax_runs_fixture.py)
+    return jax_runs_arc()
 
 
 def _f32(fields):
@@ -49,22 +47,14 @@ def _f32(fields):
 
 
 def test_window0_init_f64_matches_jax():
-    seq = _seq()
-    cfg = jwindow.StreamingConfig(dtype="float32")
-    prep = jwindow.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1, cfg)
-    t_final, i_final, _ = jingest.split_windows(prep.graph.ii, prep.knot_t)[0]
-    g = prep.graph
-    st0, prob = jwindow._pad_problem(
-        prep.states0[:t_final], prep.gaps[:t_final], prep.cum_rot[:t_final],
-        prep.gt.landmarks_xyz[:i_final], g.uv[:i_final], g.conf[:i_final],
-        g.ii[:i_final], jwindow.bucket(t_final),
-        jwindow.bucket(i_final, 64, 64), "float32")
-    hops = int(np.ceil(prep.gaps.max() / 100.0)) + 1
-    want = jwindow._window0_init_f64_cpu(
-        st0, prob, 1e-4, 10,
-        jba.SolverParams(num_hops=hops, tridiag_variant="thomas"))
+    # window 0 of the arc's f32 stream as JAX pads it, and JAX's init phase
+    # of it (Thomas solve), committed ("w0")
+    w0 = jax_runs("w0")
+    st0, hops, want = w0.st0, int(w0.hops), w0.want
+    prob = {k[len("prob_"):]: v for k, v in vars(w0).items()
+            if k.startswith("prob_")}
     got = window._window0_init_f64(
-        torch.as_tensor(np.array(st0)), _f32(numpy_fields(prob)), 1e-4, 10,
+        torch.as_tensor(np.array(st0)), _f32(prob), 1e-4, 10,
         ba.SolverParams(num_hops=hops))
     assert np.asarray(st0).dtype == np.float32 and got.dtype == torch.float64
     assert got.shape[0] < 64
@@ -76,10 +66,9 @@ def test_solve_window_f64_with_prior_matches_jax():
     f32 = {k: (v if k == "ii" else np.asarray(v, np.float32))
            for k, v in fields.items()}
     pri32 = tuple(np.asarray(a, np.float32) for a in pri)
-    want = jwindow._solve_window_f64_cpu(
-        jnp.asarray(st0, jnp.float32), jax_problem(f32), 1e-4, 0, 10,
-        jba.SolverParams(num_hops=4, tridiag_variant="thomas"),
-        prior=_jprior(pri32))
+    # JAX's _solve_window_f64_cpu of this window (Thomas solve), committed
+    j = vars(jax_runs("f64prior"))
+    want = [j[str(i)] for i in range(4)]
     got = window._solve_window_f64(
         torch.as_tensor(np.array(st0), dtype=F32), _f32(fields), 1e-4, 0, 10,
         ba.SolverParams(num_hops=4), prior=_prior(pri32))
@@ -94,8 +83,7 @@ def test_solve_window_f64_with_prior_matches_jax():
 def test_f32_stream_matches_jax():
     seq = _seq()
     kw = dict(dtype="float32", max_iters=30)
-    want = jwindow.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km, seed=1,
-                                cfg=jwindow.StreamingConfig(**kw))
+    want = jax_runs("f32")
     got = pipeline.run_streaming(seq, seed=1,
                                  cfg=window.StreamingConfig(**kw),
                                  device="cpu")
@@ -132,9 +120,14 @@ def test_forced_escalation_f32(monkeypatch):
     prep = window.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1, cfg,
                                  device="cpu")
     wins = ingest.split_windows(prep.graph.ii, prep.knot_t)
-    # each window: the first solve, the damped retry, the f64 solve
+    # the default stream takes the fast path, whose one RMS a window fails
+    # the gate, and runs again in sync mode: then each window's first
+    # solve, the damped retry, the f64 solve
+    assert res.sync_rerun
+    assert len(cands) == 4 * len(wins)
+    assert [c[0] for c in cands[:len(wins)]] == [w[0] for w in wins]
+    cands = cands[len(wins):]
     assert res.recovery_trips == len(wins) == len(escapes) >= 2
-    assert len(cands) == 3 * len(wins)
     for w, (t_final, _, _) in enumerate(wins):
         three = cands[3 * w:3 * w + 3]
         assert [c[0] for c in three] == [t_final] * 3
@@ -150,9 +143,7 @@ def test_forced_escalation_f32(monkeypatch):
 
 def test_marginalize_f32_finite_with_jax_windows():
     seq = _seq()
-    want = jwindow.stream_orbit(
-        seq.det_rows, seq.orbit_pos_eci_km, seed=1,
-        cfg=jwindow.StreamingConfig(marginalize=True, max_iters=30))
+    want = jax_runs("marginalize")  # max_iters 30, f64
     got = pipeline.run_streaming(
         seq, seed=1, cfg=window.StreamingConfig(
             dtype="float32", marginalize=True, max_iters=30), device="cpu")

@@ -5,18 +5,18 @@ which 3 are vision-only, f64 on the CPU.
 
 The initial states are equal to 1e-12 relative (the same numpy draws; quat
 log / exp of another library).  The final per-knot errors agree within
-1e-6 km: six iterations of the same arithmetic, roundoff apart.  The JAX
-run is made once per module (its shard_map compiles take seconds).
+1e-6 km: six iterations of the same arithmetic, roundoff apart.  JAX's
+simulation, problems and solve are committed
+(tests/data/torch_jax_runs_seed1.npz; its shard_map compiles took the
+most of this module's time).
 """
-import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import rel_err, torch_one_thread  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
-from vinsat_tpu.dist import long_arc as jla
-from vinsat_tpu.dist import mesh as jmesh
+from torch_parity import jax_runs, rel_err, torch_one_thread  # noqa: F401
 from vinsat_tpu_torch.dist import long_arc, mesh
 from vinsat_tpu_torch.kernels import normal_eq
 
@@ -25,15 +25,21 @@ PROBLEM_KW = dict(noise_pos_km=20.0)
 SOLVE_KW = dict(num_iters=6, init_iters=3)
 
 
+def _fields(j, prefix):
+    return types.SimpleNamespace(**{
+        k[len(prefix):]: v for k, v in vars(j).items()
+        if k.startswith(prefix)})
+
+
 @pytest.fixture(scope="module")
 def runs():
-    seq = jpipeline.simulate_sequence(1, duration_s=900, frame_stride=10,
-                                      along_track=True)
-    jprob, jgt, jkt, jn = jla.build_sharded_problem(
-        seq, n_arc=N_ARC, dtype=jnp.float64, **PROBLEM_KW)
-    jres = jla.solve_long_arc(jmesh.make_mesh(n_orbit=1, n_arc=N_ARC), jprob,
-                              jgt, jkt, jn, **SOLVE_KW)
-    inputs = (np.asarray(seq.det_rows), np.asarray(seq.orbit_pos_eci_km))
+    # JAX's arc, its problems (f64 and the default f32) and its solve are
+    # committed (tests/data/make_torch_jax_runs_fixture.py, "longarc")
+    j = jax_runs("longarc")
+    jprob, jprob32 = _fields(j, "prob_"), _fields(j, "prob32_")
+    jgt, jkt, jn = j.gt, j.knot_t, int(j.n_real)
+    jres = _fields(j, "res_")
+    inputs = (j.det_rows, j.orbit_pos_eci_km)
     prob, gt, kt, n = long_arc.build_sharded_problem(
         inputs, n_arc=N_ARC, dtype=torch.float64, device="cpu",
         **PROBLEM_KW)
@@ -42,7 +48,7 @@ def runs():
                                   prob, gt, kt, n, **SOLVE_KW)
     launches = normal_eq.assemble_normal_eq.launches - before
     return dict(jprob=jprob, jgt=jgt, jkt=jkt, jn=jn, jres=jres, prob=prob,
-                gt=gt, kt=kt, n=n, res=res, launches=launches, seq=seq,
+                gt=gt, kt=kt, n=n, res=res, launches=launches, jprob32=jprob32,
                 inputs=inputs)
 
 
@@ -81,8 +87,7 @@ def test_default_dtype_is_jax(runs):
     """Without `dtype` both packages build the problem in float32 (the
     JAX package's default) from float64 conditioning; the states carry
     the same initial noise."""
-    jprob = jla.build_sharded_problem(runs["seq"], n_arc=N_ARC,
-                                      **PROBLEM_KW)[0]
+    jprob = runs["jprob32"]
     prob = long_arc.build_sharded_problem(runs["inputs"], n_arc=N_ARC,
                                           device="cpu", **PROBLEM_KW)[0]
     for name in ("states", "gaps", "cum_rot", "lm_xyz", "uv", "conf"):

@@ -2,11 +2,13 @@
 BASELINE configs 1-3 (f64, CPU).
 
 * `run_full_batch` on a 600 s along-track arc (12 iterations, 4
-  vision-only) against JAX's with its Thomas solve: per-knot errors within
+  vision-only) against JAX's with its Thomas solve (the arc and JAX's run
+  committed in tests/data/torch_jax_runs_seed1.npz): per-knot errors within
   1e-6 km (the port's "auto" solve at 64 rows is K1's PCR, whose plain
   twin agrees with Thomas; JAX's f64 "auto" is bcr16, which does not).
 * `stream_orbit` with `marginalize` and with `use_ekf_hybrid` on
-  test_torch_stream.py's gapped arc: the same recorded times and every
+  test_torch_stream.py's gapped arc (JAX's runs committed in
+  tests/data/torch_jax_runs_seed1.npz): the same recorded times and every
   error within 1e-6 km (measured ~5e-11: bounded windows are below 64
   rows, so both sides solve by Thomas).
 * Configs 1-3 from JAX's rows in tests/data/torch_modes_seed1.npz against
@@ -18,7 +20,6 @@ BASELINE configs 1-3 (f64, CPU).
   km (measured 4.3e-6 and 1.3e-6: BA-only windows grow past 64 rows,
   where JAX's f64 "auto" is bcr16 and the port's is PCR), the two EKF-only
   passes' errors within 1e-6 km."""
-import contextlib
 import functools
 import os
 
@@ -26,11 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import torch_one_thread  # noqa: F401 (autouse)
-from vinsat_tpu import pipeline as jpipeline
-from vinsat_tpu.estimation import ba as jba
-from vinsat_tpu.estimation import ingest as jingest
-from vinsat_tpu.estimation import window as jwindow
+from torch_parity import (jax_runs, jax_runs_arc,  # noqa: F401
+                          torch_one_thread)
 from vinsat_tpu_torch import pipeline, run_configs
 from vinsat_tpu_torch.estimation import window
 from vinsat_tpu_torch.evalx import ate
@@ -56,18 +54,6 @@ def _seq(tag):
     return d
 
 
-@contextlib.contextmanager
-def jax_tridiag(variant):
-    """JAX's run_full_batch with SolverParams(tridiag_variant=variant):
-    the runner builds its own SolverParams, so its default is swapped."""
-    orig = jba.SolverParams
-    jba.SolverParams = lambda **kw: orig(**dict(kw, tridiag_variant=variant))
-    try:
-        yield
-    finally:
-        jba.SolverParams = orig
-
-
 def test_modes_fixture_is_complete():
     fx = _fx()
     for tag in ("12", "3", "gap"):
@@ -89,11 +75,11 @@ def test_modes_fixture_is_complete():
 
 
 def test_run_full_batch_matches_jax():
-    seq = jpipeline.simulate_sequence(1, duration_s=600, frame_stride=5,
-                                      along_track=True)
-    with jax_tridiag("thomas"):
-        want, kt_w, gt_w = jpipeline.run_full_batch(seq, seed=1, num_iters=12,
-                                                    init_iters=4)
+    # JAX's arc and its run_full_batch with the Thomas solve, committed
+    # (tests/data/make_torch_jax_runs_fixture.py, "fullbatch")
+    j = jax_runs("fullbatch")
+    seq = (j.det_rows, j.orbit_pos_eci_km)
+    want, kt_w, gt_w = (getattr(j, str(i)) for i in range(3))
     got, kt, gt = pipeline.run_full_batch(seq, seed=1, num_iters=12,
                                           init_iters=4, device="cpu")
     np.testing.assert_array_equal(kt, kt_w)
@@ -103,23 +89,17 @@ def test_run_full_batch_matches_jax():
     np.testing.assert_allclose(e, e_w, rtol=0, atol=1e-6)
 
 
-@functools.lru_cache(maxsize=1)
-def _short_seq():
-    return jpipeline.simulate_sequence(1, **SIM_KW)
-
-
 @pytest.mark.parametrize("mode", ["marginalize", "use_ekf_hybrid"])
 def test_bounded_stream_matches_jax(mode):
-    seq = _short_seq()
+    # JAX's simulation of the SIM_KW arc, its windows and its stream in
+    # this mode are committed (tests/data/make_torch_jax_runs_fixture.py)
+    seq = jax_runs_arc()
     kw = {mode: True, "max_iters": 30}
-    want = jwindow.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km, seed=1,
-                                cfg=jwindow.StreamingConfig(**kw))
+    want = jax_runs(mode)
     got = pipeline.run_streaming(seq, seed=1,
                                  cfg=window.StreamingConfig(**kw),
                                  device="cpu")
-    prep = jwindow.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1,
-                                  jwindow.StreamingConfig(**kw))
-    assert len(jingest.split_windows(prep.graph.ii, prep.knot_t)) >= 2
+    assert len(jax_runs("prep").windows) >= 2
     np.testing.assert_array_equal(got.times, want.times)
     np.testing.assert_allclose(got.errors, want.errors, rtol=0, atol=1e-6)
     assert got.recovery_trips == want.recovery_trips

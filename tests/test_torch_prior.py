@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_parity import (T, jax_problem, numpy_fields, orbit_problem,
-                          perturb, rel_err, torch_one_thread)  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
+from torch_parity import (T, jax_problem, jax_runs,  # noqa: F401
+                          jax_runs_arc, numpy_fields, orbit_problem,
+                          perturb, rel_err, torch_one_thread)
 from vinsat_tpu.core import quat as jquat
 from vinsat_tpu.estimation import ba as jba
 from vinsat_tpu.estimation import factors as jfactors
@@ -163,14 +163,11 @@ def test_use_prior_stream_matches_jax():
     arc it drives both streams away from the orbit (errors grow to ~90
     km, every later window trips): the same recorded times and trips, and
     each error within 1e-3 relative (+1e-3 km) of JAX's."""
-    seq = jpipeline.simulate_sequence(1, duration_s=3600, frame_stride=10,
-                                      along_track=True, pass_every_s=1200,
-                                      pass_len_s=240)
+    # JAX's stream (Thomas solve) is committed: tests/data/
+    # make_torch_jax_runs_fixture.py, "prior"
+    seq = jax_runs_arc()
     kw = dict(use_prior=True, max_iters=0)
-    want = jwindow.stream_orbit(
-        seq.det_rows, seq.orbit_pos_eci_km, seed=1,
-        cfg=jwindow.StreamingConfig(**kw),
-        solver=jba.SolverParams(tridiag_variant="thomas"))
+    want = jax_runs("prior")
     got = window.stream_orbit(seq.det_rows, seq.orbit_pos_eci_km, seed=1,
                               cfg=window.StreamingConfig(**kw), device="cpu")
     np.testing.assert_array_equal(got.times, want.times)

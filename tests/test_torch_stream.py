@@ -1,6 +1,8 @@
 """The slice end to end: JAX `stream_orbit` against the port's on the CPU
-(f64) on a short gapped along-track arc, the port's JAX-free import, and
-the committed fixture the card's smoke run is held to.
+(f64) on a short gapped along-track arc (JAX's simulation, windows and
+stream of it committed in tests/data/torch_jax_runs_seed1.npz), the
+port's JAX-free import, and the committed fixture the card's smoke run is
+held to.
 
 Bound: the same windows and recorded-error count, and every recorded
 error within 1e-3 km of JAX's (the two solve the damped systems with
@@ -14,10 +16,8 @@ import sys
 import numpy as np
 import pytest
 
-from torch_parity import torch_one_thread  # noqa: F401
-from vinsat_tpu import pipeline as jpipeline
-from vinsat_tpu.estimation import ingest as jingest
-from vinsat_tpu.estimation import window as jwindow
+from torch_parity import (jax_runs, jax_runs_arc,  # noqa: F401
+                          torch_one_thread)
 from vinsat_tpu.evalx import ate as jate
 from vinsat_tpu_torch import pipeline
 from vinsat_tpu_torch.estimation import ingest, window
@@ -31,10 +31,11 @@ SIM_KW = dict(duration_s=3600, frame_stride=10, along_track=True,
 
 @functools.lru_cache(maxsize=1)
 def _runs():
-    seq = jpipeline.simulate_sequence(1, **SIM_KW)
-    want = jwindow.stream_orbit(
-        seq.det_rows, seq.orbit_pos_eci_km, seed=1,
-        cfg=jwindow.StreamingConfig(dtype="float64", max_iters=30))
+    # JAX's simulation and stream of the arc (SIM_KW, seed 1, f64,
+    # max_iters 30) are committed (tests/data/
+    # make_torch_jax_runs_fixture.py)
+    seq = jax_runs_arc()
+    want = jax_runs("plain30")
     got = pipeline.run_streaming(
         seq, seed=1, cfg=window.StreamingConfig(dtype="float64",
                                                 max_iters=30),
@@ -57,10 +58,10 @@ def test_stream_windows_match_jax():
     cfg = window.StreamingConfig(dtype="float64")
     mine = window.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1, cfg,
                                  device="cpu")
-    ref = jwindow.prepare_stream(seq.det_rows, seq.orbit_pos_eci_km, 1,
-                                 jwindow.StreamingConfig(dtype="float64"))
+    ref = jax_runs("prep")  # JAX's prepare_stream, f64, seed 1
     w_mine = ingest.split_windows(mine.graph.ii, mine.knot_t)
-    w_ref = jingest.split_windows(ref.graph.ii, ref.knot_t)
+    w_ref = [tuple(int(v) for v in w[:2]) + (bool(w[2]),)
+             for w in ref.windows]
     assert w_mine == w_ref and len(w_mine) >= 2
     np.testing.assert_array_equal(mine.knot_t, ref.knot_t)
     np.testing.assert_allclose(mine.states0, ref.states0, rtol=1e-12)

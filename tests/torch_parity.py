@@ -6,6 +6,8 @@ the CPU) and handed to both packages as numpy arrays.
 from __future__ import annotations
 
 import functools
+import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,35 @@ from vinsat_tpu.sim import mgrs as jmgrs
 from vinsat_tpu.sim import orbits
 
 INTR = np.array([3547.8512126219637, 3547.8512126219637, 2304.0, 1296.0])
+JAX_RUNS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "torch_jax_runs_seed1.npz")
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_runs() -> dict:
+    return dict(np.load(JAX_RUNS))
+
+
+def jax_runs_arc():
+    """The gapped arc the port's stream tests share (JAX's
+    simulate_sequence(1, duration_s=3600, frame_stride=10, along_track=True,
+    pass_every_s=1200, pass_len_s=240)), from the committed fixture:
+    det_rows and orbit_pos_eci_km."""
+    fx = _jax_runs()
+    return types.SimpleNamespace(det_rows=fx["seq_det_rows"],
+                                 orbit_pos_eci_km=fx["seq_orbit_pos_eci_km"])
+
+
+def jax_runs(prefix: str) -> types.SimpleNamespace:
+    """The fixture's entries under `prefix` (tests/data/
+    make_torch_jax_runs_fixture.py says which JAX run each holds):
+    JAX's stream_orbit result (times, errors, recovery_trips,
+    first_detection, window_infos / window_est / window_gt), its
+    prepare_stream ("prep") or window 0's init phase ("w0")."""
+    head = prefix + "_"
+    return types.SimpleNamespace(**{
+        k[len(head):]: v for k, v in _jax_runs().items()
+        if k.startswith(head)})
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # CameraConfig defaults (config.py:24-26): 66 deg HFOV at 4608x2592
@@ -35,3 +36,16 @@ def resolve_device(device) -> torch.device:
             f"device {device} requested but CUDA is not available; pass "
             "device='cpu' to run on the CPU")
     return device
+
+
+def to_device(a, dtype, device) -> torch.Tensor:
+    """Host array `a` as a `dtype` tensor on `device`, converted on the
+    host (the rounding of torch.tensor(a, dtype=...)).  To a card it goes
+    from pinned memory without blocking: a plain copy from pageable memory
+    waits for everything already queued on the stream, which would make
+    the host wait for the device at every upload."""
+    t = torch.from_numpy(np.array(a)).to(dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

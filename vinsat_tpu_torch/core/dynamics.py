@@ -27,12 +27,15 @@ time (`_rollout`).
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
-from typing import List
+from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from vinsat_tpu_torch.config import to_device
 from vinsat_tpu_torch.core import forces, quat
 
 MU_EARTH = 398600.4418  # km^3/s^2
@@ -176,16 +179,25 @@ def _rollout_loop(step, x0, num_steps: int, rows=None):
     return torch.stack(xs)
 
 
-def _rollout(step, x0, num_steps: int, rows=None):
-    """`_rollout_loop`'s result.  On a card the step is captured once as a
-    CUDA graph and replayed once a step: the loop's kernels in the loop's
-    order, one launch a step in place of one an op."""
-    if x0.device.type != "cuda" or num_steps == 0:
-        return _rollout_loop(step, x0, num_steps, rows)
+class _Step(NamedTuple):
+    """A captured step of `_rollout` and its static buffers: the state x,
+    the rows it reads (None without rows) and its step counter k."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    rows: Optional[torch.Tensor]
+    k: torch.Tensor
+
+
+# `_rollout`'s kept steps, by the caller's key and the state's device,
+# dtype and shape; `kept_captures` counts the captures of kept steps
+_kept: Dict[tuple, _Step] = {}
+kept_captures = collections.Counter()
+
+
+def _capture(step, x0, rows) -> _Step:
+    """step(x, rows[k]) captured over a static copy of x0, k counting up."""
     dev = x0.device
-    out = torch.empty((num_steps + 1,) + tuple(x0.shape), dtype=x0.dtype,
-                      device=dev)
-    out[0] = x0
     x = x0.clone()
     k = torch.zeros(1, dtype=torch.int64, device=dev)
 
@@ -202,14 +214,44 @@ def _rollout(step, x0, num_steps: int, rows=None):
     with torch.cuda.stream(side):
         body()
     torch.cuda.current_stream(dev).wait_stream(side)
-    x.copy_(x0)
-    k.zero_()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         body()
+    return _Step(graph, x, rows, k)
+
+
+def _rollout(step, x0, num_steps: int, rows=None, keep=None):
+    """`_rollout_loop`'s result.  On a card the step is captured once as a
+    CUDA graph and replayed once a step: the loop's kernels in the loop's
+    order, one launch a step in place of one an op.  With `keep` (a key
+    naming the step) the captured step and its buffers are kept for later
+    calls of the same key, device, dtype and shape, which then enqueue
+    their steps without a capture or a host wait; the rows are copied into
+    a kept buffer of at least num_steps rows."""
+    if x0.device.type != "cuda" or num_steps == 0:
+        return _rollout_loop(step, x0, num_steps, rows)
+    key = (keep, x0.device, x0.dtype, tuple(x0.shape))
+    g = _kept.get(key) if keep is not None else None
+    if g is None or (rows is not None and g.rows.shape[0] < num_steps):
+        buf = rows
+        if keep is not None and rows is not None:
+            buf = torch.zeros((1 << (num_steps - 1).bit_length(),)
+                              + tuple(rows.shape[1:]), dtype=rows.dtype,
+                              device=rows.device)
+        g = _capture(step, x0, buf)
+        if keep is not None:
+            _kept[key] = g
+            kept_captures["captures"] += 1
+    if rows is not None and g.rows is not rows:
+        g.rows[:num_steps].copy_(rows)
+    g.x.copy_(x0)
+    g.k.zero_()
+    out = torch.empty((num_steps + 1,) + tuple(x0.shape), dtype=x0.dtype,
+                      device=x0.device)
+    out[0] = x0
     for i in range(1, num_steps + 1):
-        graph.replay()
-        out[i].copy_(x)
+        g.graph.replay()
+        out[i].copy_(g.x)
     return out
 
 
@@ -387,8 +429,10 @@ def propagate_gaps_with_jacobian(pos, vel, gaps, num_hops: int = 16,
 def rk4_chain(x0, hs: List[float]):
     """Sequential RK4 steps of one state (6,) with host-known step sizes;
     returns every state, (len(hs) + 1, 6).  On a card the step is
-    `_rollout`'s captured graph: one equal step keeps its Python float
-    (the eager loop's kernels), mixed steps read theirs as a row."""
+    `_rollout`'s captured graph, kept for later chains (one a device,
+    dtype and step): one equal step keeps its Python float (the eager
+    loop's kernels), mixed steps read theirs as a row uploaded from pinned
+    memory, so a chain enqueues its steps without a host wait."""
     if x0.device.type != "cuda" or not hs:
         xs = [x0]
         for h in hs:
@@ -396,9 +440,10 @@ def rk4_chain(x0, hs: List[float]):
         return torch.stack(xs)
     if all(h == hs[0] for h in hs):
         h0 = float(hs[0])
-        return _rollout(lambda x, _: rk4_step(x, h0), x0, len(hs))
-    rows = torch.tensor(hs, dtype=x0.dtype, device=x0.device)
-    return _rollout(rk4_step, x0, len(hs), rows)
+        return _rollout(lambda x, _: rk4_step(x, h0), x0, len(hs),
+                        keep=("rk4", h0))
+    rows = to_device(np.asarray(hs), x0.dtype, x0.device)
+    return _rollout(rk4_step, x0, len(hs), rows, keep=("rk4", None))
 
 
 def propagate_dense(pos0, vel0, duration: int, h: float = 1.0,

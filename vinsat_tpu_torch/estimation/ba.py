@@ -16,7 +16,10 @@ The JAX package's XLA workaround variants (bcr*, chunked*) exist for a
 TPU compiler pathology and are not ported.
 
 Schedules, masks and the λ acceptance rule are the JAX package's; the
-schedule index is a host int, so α and Σ are Python floats here.
+schedule index is a host int, so α and Σ are Python floats here
+(`robust_alpha`, `dynamics_sigma`): a captured iteration holds them as
+constants, and the stream's fast path captures one graph per distinct
+pair (estimation/graphs.py).
 
 `ba_reg_iteration` is `ba_iteration` with the window-marginal prior
 factor (the two share `_iteration`); `terminal_marginal_info`,
@@ -39,6 +42,7 @@ from typing import Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from vinsat_tpu_torch.config import to_device
 from vinsat_tpu_torch.core import quat
 from vinsat_tpu_torch.estimation import factors
 
@@ -76,12 +80,10 @@ def problem_from_numpy(fields: Mapping[str, np.ndarray], device,
                        dtype=torch.float64) -> BAProblem:
     """BAProblem from the JAX BAProblem's fields as numpy arrays (e.g.
     `{k: np.asarray(v) for k, v in jax_prob._asdict().items()}`)."""
-    out = {}
-    for name in BAProblem._fields:
-        a = np.array(fields[name])  # a copy: the source may be read-only
-        out[name] = torch.as_tensor(
-            a, dtype=torch.int64 if name == "ii" else dtype, device=device)
-    return BAProblem(**out)
+    return BAProblem(**{
+        name: to_device(fields[name], torch.int64 if name == "ii" else dtype,
+                        device)
+        for name in BAProblem._fields})
 
 
 class SolverParams(NamedTuple):
@@ -123,12 +125,24 @@ def _masked_median(x, valid):
                   + order.gather(-1, hi[..., None]))[..., 0]
 
 
+def robust_alpha(sched_iter: int) -> float:
+    """The robust weights' shape α at a schedule index: 2 -> 1 over the
+    first iterations."""
+    it = float(sched_iter)
+    return min(max(1.0 - (2.0 * (it / 5.0) - 1.0), 1.0), 2.0)
+
+
+def dynamics_sigma(sched_iter: int, params: SolverParams) -> float:
+    """The dynamics factor's weight Σ at a schedule index."""
+    return min(params.sigma_scale * (float(sched_iter) + 1.0) ** 2,
+               params.sigma_max)
+
+
 def robust_weights(r_obs, conf, obs_valid, sched_iter: int):
     """Adaptive Barron-style robust weights: α anneals 2 -> 1 over the
     first iterations; weights normalized by their max, scaled by conf.
     r_obs (..., M, 2): the scale and the max are per leading index."""
-    it = float(sched_iter)
-    alpha = min(max(1.0 - (2.0 * (it / 5.0) - 1.0), 1.0), 2.0)
+    alpha = robust_alpha(sched_iter)
     c = torch.clamp(_masked_median(r_obs, obs_valid), min=1e-12)[..., None,
                                                                   None]
     if alpha >= 2.0 - 1e-9:
@@ -418,8 +432,7 @@ def _iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
     r_obs = (prob.landmarks_uv - reproj.uv) * prob.obs_valid[..., None]
     w = robust_weights(r_obs, prob.conf, prob.obs_valid, sched_iter)
 
-    sigma = min(params.sigma_scale * (float(sched_iter) + 1.0) ** 2,
-                params.sigma_max)
+    sigma = dynamics_sigma(sched_iter, params)
 
     res_pv, res_q, A, B = dyn.res_pv, dyn.res_q, dyn.A, dyn.B
     qgrad, Hq_diag, Hq_off = dyn.qgrad, dyn.Hq_diag, dyn.Hq_off

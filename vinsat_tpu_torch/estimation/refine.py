@@ -23,7 +23,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vinsat_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from vinsat_tpu_torch.config import (DEFAULT_DEVICE, resolve_device,
+                                     to_device)
 from vinsat_tpu_torch.core import dynamics, quat
 from vinsat_tpu_torch.estimation import factors
 
@@ -48,7 +49,9 @@ class _HopPlan(NamedTuple):
 
 def _hop_plan(gaps, num_hops: int, max_substep: float, device,
               dtype) -> _HopPlan:
-    """Host schedule of the chain's active hops over knot gaps (N-1,)."""
+    """Host schedule of the chain's active hops over knot gaps (N-1,).
+    Host gaps (numpy) keep the plan free of host waits; a gaps tensor is
+    read back first."""
     if isinstance(gaps, torch.Tensor):
         gaps = gaps.detach().cpu().numpy()
     gaps = np.asarray(gaps, np.float64)
@@ -59,8 +62,8 @@ def _hop_plan(gaps, num_hops: int, max_substep: float, device,
         counts.append(len(hops))
     return _HopPlan(
         hops,
-        torch.tensor(hops, dtype=dtype, device=device).reshape(-1, 1),
-        torch.tensor(counts, dtype=torch.int64, device=device))
+        to_device(np.asarray(hops, np.float64), dtype, device).reshape(-1, 1),
+        to_device(np.asarray(counts, np.int64), torch.int64, device))
 
 
 def _rollout(x0, plan: _HopPlan):
@@ -264,10 +267,31 @@ def refine_terminal(final_states: np.ndarray, gaps: np.ndarray,
     The JAX package pads to buckets to reuse compiled programs; eager torch
     needs no padding (padding there is exact, so results agree)."""
     device = resolve_device(device)
-    N = final_states.shape[0]
+    states = torch.tensor(np.asarray(final_states), dtype=dtype,
+                          device=device)
+    return refine_terminal_device(
+        states, gaps, lm_xyz, uv, conf, ii, intrinsics,
+        max_substep=max_substep, num_iters=num_iters, cum_rot=cum_rot,
+        att_sigma=att_sigma, ratio=ratio).cpu().numpy()
+
+
+def refine_terminal_device(states, gaps: np.ndarray, lm_xyz: np.ndarray,
+                           uv: np.ndarray, conf: np.ndarray, ii: np.ndarray,
+                           intrinsics: np.ndarray, max_substep: float = 100.0,
+                           num_iters: int = 20,
+                           cum_rot: Optional[np.ndarray] = None,
+                           att_sigma: float = 1e-2,
+                           ratio: float = 1.3) -> torch.Tensor:
+    """`refine_terminal` of states (N, 10) already on their device, in
+    their dtype, returning the refined states there: the observations and
+    gaps come from the host and the hop plan is made there, so nothing
+    waits for the device (the stream's fast path chains it after the last
+    window's solve)."""
+    dtype, device = states.dtype, states.device
+    N = states.shape[0]
 
     def t(a, dt=dtype):
-        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+        return to_device(np.asarray(a), dt, device)
 
     g = np.array(gaps, np.float64)
     g[N - 1:] = 0.0
@@ -275,12 +299,10 @@ def refine_terminal(final_states: np.ndarray, gaps: np.ndarray,
     args = (t(lm_xyz), t(uv), t(conf), t(ii, torch.int64),
             torch.ones(len(ii), dtype=dtype, device=device), t(intrinsics))
     if cum_rot is not None:
-        out = refine_states_device_full(
-            t(final_states), g, t(cum_rot), *args, num_hops=hops,
+        return refine_states_device_full(
+            states, g, t(cum_rot), *args, num_hops=hops,
             max_substep=max_substep, num_iters=num_iters,
             att_sigma=att_sigma, ratio=ratio)
-    else:
-        out = refine_states_device(t(final_states), g, *args, num_hops=hops,
-                                   max_substep=max_substep,
-                                   num_iters=num_iters)
-    return out.cpu().numpy()
+    return refine_states_device(states, g, *args, num_hops=hops,
+                                max_substep=max_substep,
+                                num_iters=num_iters)

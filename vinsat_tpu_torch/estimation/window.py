@@ -13,26 +13,41 @@ window's solve when the λ search is batched).
 padded windows in one batched LM loop, where the JAX package vmaps
 `_solve_window`.
 
-Ported: the synchronous path in float64 and float32, with the JAX
-package's recovery ladder (damped retry, then the window solved again in
-f64), window 0's init phase in f64 (`window0_init_f64`), and its modes:
-the window-marginal prior on new knots (`use_prior`, `solve_window_reg`),
-bounded windows of [anchor] + new knots carrying the terminal marginal
-information (`marginalize`) and the EKF+BA hybrid (`use_ekf_hybrid`);
-NEES tracking of each window's terminal marginal (`track_nees`) and the
-anchor prior's inflation calibrated from it (`auto_calibrate`); a
-checkpoint after every window and the resume from one
-(`checkpoint_path`, `resume_from`; utils/checkpoint's npz, the JAX
-package's keys); the opt-in residual-gated early stop
-(SolverParams.conv_patience, `_lm_loop`).  Conditioning always runs in
-f64; a float32 stream solves its windows in f32 and its f64 escapes on
-the same device (the JAX package sends them to the host CPU).  A
-utils.metrics.MetricsLogger (`metrics`) gets a record a window, and a
-utils.profiling.StageTimer (`timer`) the wall of each of the stream's
-stages (prep, refine, propagate, pad_transfer, solve, marginal), each
-waiting for the card before its clock stops.  Not ported: the fused
-async "fast" path (it hides TPU dispatch latency and is bit-identical to
-the synchronous path).
+Two dispatch modes, as in the JAX package.  The async fast path
+(`stream_orbit(fast=None)`, on by default in the plain growing-prefix
+mode, which pipeline.run_streaming, the CLI's `stream` and the benchmark
+take; `_stream_fast`): states stay on the device, window 0 solves from
+its host-known start, each later window is one `_fast_window_full`
+(propagation and assembly, `_prop_window_fast`; the LM solve; the end
+error, health flag and RMS, `_end_stats`), the tail refinement is
+chained after it, and the host reads once, at the end of the stream.  On
+a card each window's solve is the replay of its captured CUDA graphs
+(`_solve_window_fast`, estimation/graphs.py): one graph per distinct
+iteration schedule, kept by the key JAX's jit would compile for, so a
+second stream over the same arc captures nothing; the 1 Hz propagation
+replays rk4_chain's captured step.  A window that comes out non-finite or
+above recover_rms_px makes the whole stream run again in sync mode, and
+the result says so (`sync_rerun`).  The fast path's results are the sync
+path's bit for bit.
+
+The synchronous path (fast=False, and every other mode) runs in float64
+and float32, with the JAX package's recovery ladder (damped retry, then
+the window solved again in f64), window 0's init phase in f64
+(`window0_init_f64`), and its modes: the window-marginal prior on new
+knots (`use_prior`, `solve_window_reg`), bounded windows of [anchor] +
+new knots carrying the terminal marginal information (`marginalize`) and
+the EKF+BA hybrid (`use_ekf_hybrid`); NEES tracking of each window's
+terminal marginal (`track_nees`) and the anchor prior's inflation
+calibrated from it (`auto_calibrate`); a checkpoint after every window
+and the resume from one (`checkpoint_path`, `resume_from`;
+utils/checkpoint's npz, the JAX package's keys); the opt-in
+residual-gated early stop (SolverParams.conv_patience, `_lm_loop`).
+Conditioning always runs in f64; a float32 stream solves its windows in
+f32 and its f64 escapes on the same device (the JAX package sends them to
+the host CPU).  A utils.metrics.MetricsLogger (`metrics`) gets a record a
+window, and a utils.profiling.StageTimer (`timer`) the wall of each of
+the stream's stages (prep, refine, propagate, pad_transfer, solve,
+marginal), each waiting for the card before its clock stops.
 """
 from __future__ import annotations
 
@@ -44,9 +59,10 @@ import numpy as np
 import torch
 
 from vinsat_tpu_torch.config import (DEFAULT_DEVICE, REFERENCE_INTRINSICS,
-                                     resolve_device)
+                                     resolve_device, to_device)
 from vinsat_tpu_torch.core import dynamics, quat
-from vinsat_tpu_torch.estimation import ba, factors, hybrid, ingest, refine
+from vinsat_tpu_torch.estimation import (ba, factors, graphs, hybrid, ingest,
+                                         refine)
 from vinsat_tpu_torch.evalx import calibration
 from vinsat_tpu_torch.utils import checkpoint
 from vinsat_tpu_torch.utils.profiling import StageTimer
@@ -61,8 +77,79 @@ def bucket(n: int, step: int = 16, minimum: int = 16) -> int:
     return ((m + q - 1) // q) * q
 
 
-def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
+def _lm_iters(num_iters: int, params: ba.SolverParams) -> int:
+    """Iterations `_lm_loop` runs at most."""
+    return num_iters if params.max_iters <= num_iters else params.max_iters
+
+
+def _early_stop(num_iters: int, params: ba.SolverParams) -> bool:
+    return (params.max_iters > num_iters
+            and params.conv_patience < params.max_iters - num_iters)
+
+
+def _lm_start(states0, lamda_init):
+    """The LM chain's carry before its first iteration: (states, λ, last
+    Hessian, residual, best states, best Hessian, best residual, iterations
+    since the best improved)."""
+    dtype, dev = states0.dtype, states0.device
+    orbits = states0.shape[:-2]
+    if isinstance(lamda_init, torch.Tensor):
+        lam = lamda_init.to(dtype=dtype, device=dev).expand(orbits)
+    else:
+        lam = torch.full(orbits, float(lamda_init), dtype=dtype, device=dev)
+    last_h = torch.zeros(orbits + (9, 9), dtype=dtype, device=dev)
+    res = torch.zeros(orbits, dtype=dtype, device=dev)
+    best_res = torch.full(orbits, math.inf, dtype=dtype, device=dev)
+    since = torch.zeros(orbits, dtype=torch.int64, device=dev)
+    return states0, lam, last_h, res, states0, last_h, best_res, since
+
+
+def _lm_step(i: int, carry, step_i, init_iters: int, num_iters: int,
              params: ba.SolverParams):
+    """Iteration i of `_lm_loop` on its carry (`_lm_start`'s layout).  With
+    the early stop, past num_iters an orbit whose best residual has not
+    improved for conv_patience iterations keeps its carry."""
+    states, lam, last_h, res, best_states, best_h, best_res, since = carry
+    if params.max_iters <= num_iters:
+        states, lam, last_h, res = step_i(i, states, lam)
+        return states, lam, last_h, res, best_states, best_h, best_res, since
+    early_stop = _early_stop(num_iters, params)
+    active = (since < params.conv_patience
+              if early_stop and i >= num_iters else None)
+    states_n, lam_n, last_h, res = step_i(i, states, lam)
+    if i == init_iters:
+        take = torch.ones_like(res, dtype=torch.bool)
+    else:
+        take = res < best_res
+    if early_stop:
+        improved = res < best_res * (1.0 - params.conv_rtol)
+        since_n = torch.where((i == init_iters) | improved,
+                              torch.zeros_like(since), since + 1)
+        if active is not None:
+            take = take & active
+            since_n = torch.where(active, since_n, since)
+            states_n = torch.where(ba._along(active, states_n), states_n,
+                                   states)
+            lam_n = torch.where(active, lam_n, lam)
+        since = since_n
+    best_states = torch.where(ba._along(take, states_n), states_n,
+                              best_states)
+    best_h = torch.where(ba._along(take, last_h), last_h, best_h)
+    best_res = torch.where(take, res, best_res)
+    return states_n, lam_n, last_h, res, best_states, best_h, best_res, since
+
+
+def _lm_result(carry, num_iters: int, params: ba.SolverParams):
+    """(states, lamda, last_hessian, mean_residual): the last iterate of a
+    fixed count, else the best."""
+    states, lam, last_h, res, best_states, best_h, best_res, _ = carry
+    if params.max_iters <= num_iters:
+        return states, lam, last_h, res
+    return best_states, lam, best_h, best_res
+
+
+def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
+             params: ba.SolverParams, frozen: bool = False):
     """Run the per-window LM iteration chain.
 
     params.max_iters <= num_iters: exactly num_iters iterations, returning
@@ -77,76 +164,92 @@ def _lm_loop(step_i, states0, lamda_init, init_iters: int, num_iters: int,
         residual improved by more than conv_rtol (against the best from
         before the iteration) within the last conv_patience iterations.
         The JAX package's while_loop is a host loop here that reads the
-        stop condition once an iteration (one sync each).
+        stop condition once an iteration (one sync each).  `frozen` (the
+        stream's fast path) never reads it: the loop runs to max_iters
+        with each stopped orbit's carry frozen, which ends on the same
+        iterate.
 
     step_i(i, states, lam) -> BAStep.  Returns (states, lamda,
     last_hessian, mean_residual).  states0 (B, N, 10) runs B orbits at once
     (lamda_init a float or (B,)): λ, the best-iterate tracking and the
     early stop are then per orbit, as under the JAX package's vmap — an
     orbit that has stopped keeps its carry while the others iterate, and
-    the loop ends when every orbit has stopped.
+    the loop ends when every orbit has stopped.  One iteration is
+    `_lm_step` on `_lm_start`'s carry.
     """
-    dtype, dev = states0.dtype, states0.device
-    orbits = states0.shape[:-2]
-    states = states0
-    if isinstance(lamda_init, torch.Tensor):
-        lam = lamda_init.to(dtype=dtype, device=dev).expand(orbits)
-    else:
-        lam = torch.full(orbits, float(lamda_init), dtype=dtype, device=dev)
-    last_h = torch.zeros(orbits + (9, 9), dtype=dtype, device=dev)
-    res = torch.zeros(orbits, dtype=dtype, device=dev)
-
-    if params.max_iters <= num_iters:
-        for i in range(num_iters):
-            states, lam, last_h, res = step_i(i, states, lam)
-        return states, lam, last_h, res
-
-    early_stop = params.conv_patience < params.max_iters - num_iters
-    best_states, best_h = states0, last_h
-    best_res = torch.full(orbits, math.inf, dtype=dtype, device=dev)
-    since = torch.zeros(orbits, dtype=torch.int64, device=dev)
-    for i in range(params.max_iters):
-        active = None  # every orbit iterates
-        if early_stop and i >= num_iters:
-            active = since < params.conv_patience
-            if not bool(active.any()):
-                break
-        states_n, lam_n, last_h, res = step_i(i, states, lam)
-        if i == init_iters:
-            take = torch.ones_like(res, dtype=torch.bool)
-        else:
-            take = res < best_res
-        if early_stop:
-            improved = res < best_res * (1.0 - params.conv_rtol)
-            since_n = torch.where((i == init_iters) | improved,
-                                  torch.zeros_like(since), since + 1)
-            if active is not None:
-                take = take & active
-                since_n = torch.where(active, since_n, since)
-                states_n = torch.where(ba._along(active, states_n), states_n,
-                                       states)
-                lam_n = torch.where(active, lam_n, lam)
-            since = since_n
-        states, lam = states_n, lam_n
-        best_states = torch.where(ba._along(take, states), states,
-                                  best_states)
-        best_h = torch.where(ba._along(take, last_h), last_h, best_h)
-        best_res = torch.where(take, res, best_res)
-    return best_states, lam, best_h, best_res
+    carry = _lm_start(states0, lamda_init)
+    for i in range(_lm_iters(num_iters, params)):
+        if (not frozen and _early_stop(num_iters, params) and i >= num_iters
+                and not bool((carry[7] < params.conv_patience).any())):
+            break
+        carry = _lm_step(i, carry, step_i, init_iters, num_iters, params)
+    return _lm_result(carry, num_iters, params)
 
 
-def _solve_window(states0, prob: ba.BAProblem, lamda_init, init_iters: int,
-                  num_iters: int, params: ba.SolverParams = ba.SolverParams(),
-                  sched_offset: int = 0):
-    """LM iterations over one (padded) window; the first init_iters are
-    vision-only.  Returns (states, lamda, last_hessian, mean_residual)."""
+def _window_step(prob: ba.BAProblem, init_iters: int, params: ba.SolverParams,
+                 sched_offset: int = 0):
+    """step_i of `_lm_loop` for a window's plain LM iterations."""
 
     def step_i(i, states, lam):
         return ba.ba_iteration(i + sched_offset, states, prob, lam,
                                params=params, initialize=(i < init_iters))
 
-    return _lm_loop(step_i, states0, lamda_init, init_iters, num_iters,
-                    params)
+    return step_i
+
+
+def _solve_window(states0, prob: ba.BAProblem, lamda_init, init_iters: int,
+                  num_iters: int, params: ba.SolverParams = ba.SolverParams(),
+                  sched_offset: int = 0, frozen: bool = False):
+    """LM iterations over one (padded) window; the first init_iters are
+    vision-only.  Returns (states, lamda, last_hessian, mean_residual)."""
+    return _lm_loop(_window_step(prob, init_iters, params, sched_offset),
+                    states0, lamda_init, init_iters, num_iters, params,
+                    frozen)
+
+
+def _lm_signature(i: int, init_iters: int, num_iters: int,
+                  params: ba.SolverParams, sched_offset: int = 0) -> tuple:
+    """The host values iteration i of `_solve_window` runs with besides its
+    carry: two iterations of one signature run the same kernels on the
+    same scalars (the fast path captures one CUDA graph for each)."""
+    k = i + sched_offset
+    return (ba.robust_alpha(k), ba.dynamics_sigma(k, params), i < init_iters,
+            i == init_iters, _early_stop(num_iters, params) and i >= num_iters)
+
+
+def _solve_window_fast(states0, prob: ba.BAProblem, lamda_init: float,
+                       init_iters: int, num_iters: int,
+                       params: ba.SolverParams):
+    """`_solve_window` without a host read: on a card, the replay of the
+    window's captured iterations (graphs.LoopProgram, kept by the key JAX's
+    jit would compile for: shapes, iteration counts, λ0, SolverParams,
+    dtype), else the eager loop with the early stop frozen.  The same
+    iterate either way.  The batched λ search is what a graph can hold: the
+    sequential one reads the host every trial."""
+    if states0.device.type != "cuda":
+        return _solve_window(states0, prob, lamda_init, init_iters,
+                             num_iters, params, frozen=True)
+    if params.batched_lambda <= 0:
+        raise ValueError("a captured window solve needs the batched λ "
+                         "search (SolverParams.batched_lambda > 0)")
+    key = ("window", states0.device, states0.dtype, states0.shape[0],
+           prob.landmarks_uv.shape[0], num_iters, init_iters,
+           float(lamda_init), params, graphs.kernel_flags())
+
+    def start(ins):
+        return _lm_start(ins[0], float(lamda_init))
+
+    def step(i, ins, carry):
+        return _lm_step(i, carry, _window_step(ba.BAProblem(*ins[1:]),
+                                               init_iters, params),
+                        init_iters, num_iters, params)
+
+    inputs = [states0, *prob]
+    prog = graphs.program(key, lambda: graphs.LoopProgram(
+        inputs, start, step, range(_lm_iters(num_iters, params)),
+        lambda i: _lm_signature(i, init_iters, num_iters, params)))
+    carry = prog.run(inputs)
+    return tuple(t.clone() for t in _lm_result(carry, num_iters, params))
 
 
 def solve_window_batch(states0_b, prob_b: ba.BAProblem, lamda_b, init_iters,
@@ -199,6 +302,71 @@ def _propagate_impl(state10, omega_seq, length: int):
     return torch.cat([xs[:, :3], qs, xs[:, 3:6]], dim=-1)
 
 
+def _sq_dist_km(pos, gt_pos):
+    """Squared distances (..., ) in f64 between positions (..., 3) and GT
+    (..., 3), summed as numpy's norm sums: the fast path records these on
+    the device, and the host takes the square roots at the stream's one
+    read, so its errors are the sync path's `np.linalg.norm` bit for bit
+    (torch's CPU sqrt is not always correctly rounded)."""
+    d = pos.to(torch.float64) - gt_pos
+    sq = d * d
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
+def _prop_window_fast(cur_padded, last_idx: int, omega, span: int,
+                      rel_idx_pad, abs_idx_pad, t_prev: int, t_final: int,
+                      gt_states, n_pad: int):
+    """The fast path's step between windows, on the device (no host read):
+    propagate the last optimized knot across the gap, take the propagated
+    states at the new knots, their squared errors against GT, and the next
+    window's padded initial states [optimized prefix | propagated new
+    knots | identity padding].
+
+    cur_padded: the previous window's padded solve output (n_prev, 10);
+    omega: the IMU rates of the `span` steps (span, 3), on the device;
+    rel_idx_pad[j]: position of knot t_prev + j on the propagated path;
+    abs_idx_pad[j]: its row of gt_states (f64, on the device); entries at j
+    >= t_final - t_prev are padding.  The host knows last_idx, span, t_prev
+    and t_final (the JAX package's max_len padding is not needed: the
+    propagation runs `span` steps).  Returns (st0 (n_pad, 10), err2_prop
+    (n_pad,) squared km)."""
+    path = _propagate_impl(cur_padded[last_idx], omega, span)
+    prop = path.index_select(0, rel_idx_pad)
+    err2 = _sq_dist_km(prop[:, :3],
+                       gt_states.index_select(0, abs_idx_pad)[:, :3])
+    pad = torch.zeros((n_pad - t_final, 10), dtype=prop.dtype,
+                      device=prop.device)
+    pad[:, 6] = 1.0
+    st = torch.cat([cur_padded[:t_prev], prop[:t_final - t_prev], pad])
+    return st, err2
+
+
+def _end_stats(out, gt_states, idx: int):
+    """End-of-window squared error (f64, at knot idx) and the solve-health
+    flag (every state finite), on the device (fast path)."""
+    return (_sq_dist_km(out[idx, :3], gt_states[idx, :3]),
+            torch.isfinite(out).all())
+
+
+def _fast_window_full(cur_padded, last_idx: int, omega, span: int,
+                      rel_idx_pad, abs_idx_pad, t_prev: int, t_final: int,
+                      gt_states, prob: ba.BAProblem, lamda: float,
+                      num_iters: int, params: ba.SolverParams, n_pad: int):
+    """One fast-path window > 0, enqueued without a host read: the step
+    between windows (`_prop_window_fast`), the window's LM solve (on a
+    card the replay of its captured iterations, `_solve_window_fast`) and
+    its end statistics: the end error, the health flag and the gated
+    reprojection RMS.  Returns (states, λ, err2_prop, err2_end, finite,
+    rms)."""
+    st0, err2_prop = _prop_window_fast(
+        cur_padded, last_idx, omega, span, rel_idx_pad, abs_idx_pad, t_prev,
+        t_final, gt_states, n_pad)
+    out, lam_new, _, _ = _solve_window_fast(st0, prob, lamda, 0, num_iters,
+                                            params)
+    e2, fin = _end_stats(out, gt_states, t_final - 1)
+    return out, lam_new, err2_prop, e2, fin, _reproj_rms_impl(out, prob)
+
+
 class StreamingResult(NamedTuple):
     errors: np.ndarray  # (K,) km position errors at recorded times
     times: np.ndarray  # (K,) frame times of those errors
@@ -210,6 +378,9 @@ class StreamingResult(NamedTuple):
     window_gt: Optional[np.ndarray] = None
     # windows whose FIRST solve tripped the recovery ladder
     recovery_trips: int = 0
+    # the fast path found a window non-finite or above recover_rms_px and
+    # this is the stream run again in sync mode
+    sync_rerun: bool = False
 
 
 class StreamingConfig(NamedTuple):
@@ -323,7 +494,7 @@ def _pad_problem(states, gaps, cum_rot, lm_xyz, lm_uv, conf, ii,
     st[:n] = states
     prob = _pad_prob(n, gaps, cum_rot, lm_xyz, lm_uv, conf, ii, n_pad, m_pad,
                      device, dtype, intrinsics=intrinsics)
-    return torch.as_tensor(st, dtype=dtype, device=device), prob
+    return to_device(st, dtype, device), prob
 
 
 class PreparedStream(NamedTuple):
@@ -472,13 +643,169 @@ def _window0_init_f64(st0, prob: ba.BAProblem, lamda0, init_iters: int,
     return r[0]
 
 
+def _new_knot_rows(knot_t: np.ndarray, a: int, b: int, n_pad: int):
+    """Host index rows of knots [a, b) for `_prop_window_fast`: each one's
+    step on the path propagated from knot a - 1, and its own row; zero
+    past b - a."""
+    rel = np.zeros(n_pad, np.int64)
+    rel[:b - a] = knot_t[a:b] - knot_t[a - 1]
+    absi = np.zeros(n_pad, np.int64)
+    absi[:b - a] = np.arange(a, b)
+    return rel, absi
+
+
+def _window_setup(prep: PreparedStream, cfg: StreamingConfig,
+                  solver: ba.SolverParams, solver_later: ba.SolverParams,
+                  w: int, t_final: int, i_final: int, device, dtype,
+                  window_states: Optional[np.ndarray] = None, first: int = 0,
+                  i_first: int = 0, later: bool = True):
+    """The setup of window w that both dispatch modes share: its solver
+    (the reduced later budget for a multi-pass window when `later`, the
+    gap bridge's hops cut to those its gaps use: the rest are zero-length,
+    and a zero-length hop changes nothing), n_pad, and the padded problem
+    of knots [first, t_final) and observations [i_first, i_final), with
+    window_states (knots first..) padded beside it when given.  Returns
+    (solver_w, n_pad, st0 or None, prob)."""
+    graph, gaps = prep.graph, prep.gaps
+    solver_w = solver
+    if later and w > 0 and _multi_pass_window(
+            prep.knot_t[graph.ii[:i_final]], cfg):
+        solver_w = solver_later
+    n_pad = bucket(t_final - first, cfg.knot_bucket)
+    m_pad = bucket(max(i_final - i_first, 1), cfg.obs_bucket,
+                   cfg.obs_bucket)
+    obs = slice(i_first, i_final)
+    args = (gaps[first:t_final], prep.cum_rot[first:t_final],
+            prep.gt.landmarks_xyz[obs], graph.uv[obs], graph.conf[obs],
+            graph.ii[obs] - first, n_pad, m_pad, device, dtype)
+    if window_states is None:
+        st0, prob = None, _pad_prob(t_final - first, *args,
+                                    intrinsics=prep.intr_np)
+    else:
+        st0, prob = _pad_problem(window_states, *args,
+                                 intrinsics=prep.intr_np)
+    solver_w = solver_w._replace(num_hops=min(
+        solver_w.num_hops,
+        dynamics.active_hops(gaps[first:t_final], solver_w.max_substep)))
+    return solver_w, n_pad, st0, prob
+
+
+def _window0_start(st0, prob: ba.BAProblem, cfg: StreamingConfig,
+                   solver_w: ba.SolverParams, dtype):
+    """Window 0's start and vision-only iterations: with
+    cfg.window0_init_f64, the f64 init phase's result and none left."""
+    if cfg.window0_init_f64:
+        o64 = _window0_init_f64(st0, prob, cfg.lambda_init, cfg.init_iters,
+                                solver_w)
+        if o64 is not None:
+            return o64.to(dtype), 0
+    return st0, cfg.init_iters
+
+
+def _refine_tail(states, prep: PreparedStream, cfg: StreamingConfig,
+                 solver: ba.SolverParams, t_init: int):
+    """The tail refinement of the solved knots [0, t_init), states on the
+    device (refine.refine_terminal_device)."""
+    graph = prep.graph
+    return refine.refine_terminal_device(
+        states, prep.gaps[:t_init], prep.gt.landmarks_xyz, graph.uv,
+        graph.conf, graph.ii, prep.intr_np, max_substep=solver.max_substep,
+        cum_rot=(prep.cum_rot[:t_init] if cfg.tail_refine_rigid else None),
+        att_sigma=cfg.tail_refine_att_sigma, ratio=cfg.tail_refine_ratio)
+
+
+def _stream_fast(prep: PreparedStream, windows, cfg: StreamingConfig,
+                 solver: ba.SolverParams, solver_later: ba.SolverParams,
+                 device, dtype) -> Optional[StreamingResult]:
+    """`stream_orbit`'s async fast path: the states stay on the device,
+    window 0 solves from its host-known start (and, in f32, its f64 init
+    phase), each later window is one `_fast_window_full`, the tail
+    refinement and propagation are chained after the last window, and the
+    recorded errors, health flags, RMS and final states come back in one
+    host read at the end.  Uploads come from pinned memory, so the host
+    never waits for the device before that read.  Returns None when a
+    window's solve was non-finite or its RMS above cfg.recover_rms_px (the
+    caller runs the stream again in sync mode)."""
+    gt, knot_t = prep.gt, prep.knot_t
+
+    def t(a, dt=dtype):
+        return to_device(a, dt, device)
+
+    gt_dev = t(gt.states, torch.float64)
+    sq_errs: List[Tuple[torch.Tensor, int]] = []  # (squared km, kept)
+    times: List[np.ndarray] = []
+    checks: List[torch.Tensor] = []  # each window's finite flag and RMS
+    t_prev = 0
+    for w, (t_final, i_final, seq_end) in enumerate(windows):
+        solver_w, n_pad, st0, prob = _window_setup(
+            prep, cfg, solver, solver_later, w, t_final, i_final, device,
+            dtype, window_states=prep.states0[:t_final] if w == 0 else None)
+        if w == 0:
+            st0, init_iters = _window0_start(st0, prob, cfg, solver_w, dtype)
+            out = _solve_window_fast(st0, prob, cfg.lambda_init, init_iters,
+                                     cfg.num_iters, solver_w)[0]
+            e2, fin = _end_stats(out, gt_dev, t_final - 1)
+            rms = _reproj_rms_impl(out, prob)
+        else:
+            rel, absi = _new_knot_rows(knot_t, t_prev, t_final, n_pad)
+            om = gt.omega_full[knot_t[t_prev - 1]:knot_t[t_final - 1]]
+            out, _, err2, e2, fin, rms = _fast_window_full(
+                out, t_prev - 1, t(om), int(knot_t[t_final - 1]
+                                            - knot_t[t_prev - 1]),
+                t(rel, torch.int64), t(absi, torch.int64), t_prev, t_final,
+                gt_dev, prob, cfg.lambda_init, cfg.num_iters, solver_w, n_pad)
+            # propagation errors at the new knots except the last
+            sq_errs.append((err2, t_final - t_prev - 1))
+            times.append(knot_t[t_prev:t_final][:-1])
+        sq_errs.append((e2, 1))
+        times.append(knot_t[t_final - 1:t_final])
+        checks += [fin, rms]
+        t_prev = t_final
+        final = out[:t_final]
+        if seq_end and t_final < len(knot_t):
+            # the tail: refined, then propagated to the arc's end
+            if cfg.tail_refine:
+                final = _refine_tail(final, prep, cfg, solver, t_final)
+            n_tail = len(knot_t) - t_final
+            rel, absi = _new_knot_rows(knot_t, t_final, len(knot_t),
+                                       bucket(n_tail, cfg.knot_bucket))
+            _, err2 = _prop_window_fast(
+                final, t_final - 1,
+                t(gt.omega_full[knot_t[t_final - 1]:knot_t[-1]]),
+                int(knot_t[-1] - knot_t[t_final - 1]), t(rel, torch.int64),
+                t(absi, torch.int64), 0, 0, gt_dev, len(rel))
+            sq_errs.append((err2, n_tail))
+            times.append(knot_t[t_final:])
+
+    # the stream's one host read
+    parts = [e for e, _ in sq_errs] + checks + [final]
+    flat = torch.cat([p.reshape(-1).to(torch.float64)
+                      for p in parts]).cpu().numpy()
+    cuts = np.cumsum([p.numel() for p in parts])[:-1]
+    host = np.split(flat, cuts)
+    fins, rmss = host[len(sq_errs):-1:2], host[len(sq_errs) + 1:-1:2]
+    if not all(bool(f[0]) for f in fins) or (cfg.recover_rms_px > 0 and any(
+            not np.isfinite(r[0]) or r[0] > cfg.recover_rms_px
+            for r in rmss)):
+        return None
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return StreamingResult(
+        errors=np.concatenate([np.sqrt(e[:k]) for e, (_, k)
+                               in zip(host, sq_errs)]),
+        times=np.concatenate(times),
+        first_detection=int(knot_t[windows[0][0] - 1]),
+        final_states=host[-1].reshape(-1, 10).astype(np_dtype),
+        knot_times=knot_t[:t_prev])
+
+
 def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                  seed: int = 0, cfg: StreamingConfig = StreamingConfig(),
                  solver: ba.SolverParams = ba.SolverParams(),
                  intrinsics: Optional[np.ndarray] = None,
                  device=DEFAULT_DEVICE, checkpoint_path=None,
                  resume_from=None, metrics=None,
-                 timer: Optional[StageTimer] = None) -> StreamingResult:
+                 timer: Optional[StageTimer] = None,
+                 fast: Optional[bool] = None) -> StreamingResult:
     """Run streaming OD on one detection sequence on `device`.
 
     det_rows: (M, 6) [frame, lon, lat, xc, yc, conf]; orbit_pos_eci_km:
@@ -501,6 +828,18 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
     "nees" record.  timer: a utils.profiling.StageTimer accumulating each
     stream stage's wall; its stages synchronize the device, so it costs
     a wait a stage.  Neither changes a result.
+
+    fast: the async dispatch (None = auto, the JAX package's rule).  The
+    plain growing-prefix mode qualifies (no checkpoint or resume, no
+    metrics, no timer, no prior, not bounded, no NEES tracking; on a card
+    also the batched λ search, which is the card's default: the
+    sequential one reads the host every trial), and fast=True outside it
+    runs the sync path.  The fast path (`_stream_fast`) reads the host
+    once, at the end of the stream; the results are the sync path's bit
+    for bit.  When a window's solve came out non-finite, or fit its own
+    observations worse than cfg.recover_rms_px, the stream runs again with
+    fast=False, whose per-window recovery ladder handles it, and that
+    result (its recovery_trips included) is returned with sync_rerun=True.
     """
     _check_supported(cfg)
     device = resolve_device(device)
@@ -544,6 +883,7 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
     t_prev = 0
     i_prev = 0
     max_hops = int(np.ceil(gaps.max() / solver.max_substep)) + 1
+    solver_in = solver  # the caller's, for a sync re-run of a fast stream
     solver = solver._replace(
         num_hops=max(solver.num_hops, max_hops),
         max_iters=solver.max_iters if solver.max_iters > 0
@@ -561,6 +901,21 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                                                 cfg.num_iters + 1)))
     bounded = cfg.marginalize or cfg.use_ekf_hybrid
     track = cfg.track_nees or (cfg.auto_calibrate and bounded)
+    # async fast path: only the plain growing-prefix mode qualifies (every
+    # other mode needs host values between windows)
+    fast_ok = (checkpoint_path is None and resume_from is None
+               and metrics is None and sync is None and not cfg.use_prior
+               and not bounded and not track
+               and (device.type != "cuda" or solver.batched_lambda > 0))
+    if (fast_ok if fast is None else bool(fast) and fast_ok):
+        res = _stream_fast(prep, windows, cfg, solver, solver_later, device,
+                           dtype)
+        if res is not None:
+            return res
+        return stream_orbit(det_rows, orbit_pos_eci_km, seed=seed, cfg=cfg,
+                            solver=solver_in, intrinsics=intrinsics,
+                            device=device, fast=False)._replace(
+                                sync_rerun=True)
     n_trips = 0
     # NEES samples: each window's terminal marginal, estimate and GT
     nees_infos: List[np.ndarray] = []
@@ -602,14 +957,8 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
         nonlocal cur_states
         if cfg.tail_refine:
             with timer.stage("refine", sync):
-                cur_states = refine.refine_terminal(
-                    cur_states, gaps[:t_init], gt.landmarks_xyz, graph.uv,
-                    graph.conf, graph.ii, intr_np, dtype,
-                    max_substep=solver.max_substep,
-                    cum_rot=(cum_rot[:t_init] if cfg.tail_refine_rigid
-                             else None),
-                    att_sigma=cfg.tail_refine_att_sigma,
-                    ratio=cfg.tail_refine_ratio, device=device)
+                cur_states = _refine_tail(t(cur_states), prep, cfg, solver,
+                                          t_init).cpu().numpy()
         span = int(knot_t[-1] - knot_t[t_init - 1])
         om = gt.omega_full[knot_t[t_init - 1]:knot_t[-1]]
         with timer.stage("propagate", sync):
@@ -670,12 +1019,6 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
             if seq_end and t_prev < len(knot_t):
                 record_tail(t_prev)
             continue
-        # the reduced budget needs >= 2 passes in the solved span; bounded
-        # windows are anchor + one pass and always take the full budget
-        solver_w = solver
-        if not bounded and w > 0 and _multi_pass_window(
-                knot_t[graph.ii[:i_final]], cfg):
-            solver_w = solver_later
         sub_anchor: Optional[int] = None
         if w == 0:
             window_states = states[:t_final]
@@ -731,21 +1074,14 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
         init_iters = cfg.init_iters if w == 0 else 0
         first = 0 if sub_anchor is None else sub_anchor
         i_first = 0 if sub_anchor is None else i_prev
-        n_pad = bucket(t_final - first, cfg.knot_bucket)
-        m_pad = bucket(max(i_final - i_first, 1), cfg.obs_bucket,
-                       cfg.obs_bucket)
         with timer.stage("pad_transfer", sync):
-            st0, prob = _pad_problem(
-                window_states, gaps[first:t_final], cum_rot[first:t_final],
-                gt.landmarks_xyz[i_first:i_final],
-                graph.uv[i_first:i_final], graph.conf[i_first:i_final],
-                graph.ii[i_first:i_final] - first, n_pad, m_pad, device,
-                dtype, intrinsics=intr_np)
-        # the gap bridge runs only the hops this window's gaps use: the
-        # rest are zero-length, and a zero-length hop changes nothing
-        solver_w = solver_w._replace(num_hops=min(
-            solver_w.num_hops,
-            dynamics.active_hops(gaps[first:t_final], solver_w.max_substep)))
+            # the reduced budget needs >= 2 passes in the solved span;
+            # bounded windows are anchor + one pass and always take the
+            # full budget
+            solver_w, n_pad, st0, prob = _window_setup(
+                prep, cfg, solver, solver_later, w, t_final, i_final, device,
+                dtype, window_states=window_states, first=first,
+                i_first=i_first, later=not bounded)
         prior = None
         extra_diag0 = None
         if sub_anchor is not None:
@@ -754,12 +1090,9 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
             prior = _padded_prior(n_pad, 0, cur_states[-1:], Hs0[None],
                                   Hr0[None], device, dtype)
         else:
-            if w == 0 and cfg.window0_init_f64:
-                o64 = _window0_init_f64(st0, prob, lamda, init_iters,
-                                        solver_w)
-                if o64 is not None:
-                    st0 = o64.to(dtype)
-                    init_iters = 0
+            if w == 0:
+                st0, init_iters = _window0_start(st0, prob, cfg, solver_w,
+                                                 dtype)
             if cfg.use_prior and w > 0 and prior_full is not None:
                 ps, hs, hr, a = prior_full
                 prior = _padded_prior(n_pad, a, ps, hs, hr, device, dtype)

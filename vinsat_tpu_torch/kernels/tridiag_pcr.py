@@ -15,9 +15,18 @@ launch.  `block_tridiag_solve_pcr.launches` counts kernel launches (one per
 solve), so a run can show it went through the kernel.  The launch goes
 through `_build.Entry` (the C entry bound once, the raw current stream);
 the scratch size is asked of the library once per (B, N, dtype, device).
+
+A call inside a CUDA graph capture launches nothing: the solve is recorded
+into the graph, and launched at each replay.  The capture hands the solve's
+(B, N, dtype) to the list of `capturing(shapes)`, and whoever replays the
+graph counts its solves with `launched(shapes)` after each replay
+(estimation/graphs.py does), so `launches` counts the kernels that ran,
+eager or replayed, and nothing else; `launched` is where a caller can
+watch every launch's shape.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -106,6 +115,28 @@ def _work(Bn: int, N: int, f64: int, device) -> int:
     return n
 
 
+# the shapes list of the capture in progress (`capturing`)
+_captured = None
+
+
+@contextlib.contextmanager
+def capturing(shapes: list):
+    """Inside the block, each solve captured into a CUDA graph appends its
+    (B, N, dtype) to `shapes` instead of counting as a launch."""
+    global _captured
+    prev, _captured = _captured, shapes
+    try:
+        yield shapes
+    finally:
+        _captured = prev
+
+
+def launched(shapes) -> None:
+    """Count one K1 launch per (B, N, dtype) in `shapes`: an eager call's
+    own, or the solves a replayed graph holds."""
+    block_tridiag_solve_pcr.launches += len(shapes)
+
+
 def _launch(D, U, b):
     Bn, N = D.shape[0], D.shape[1]
     dev = D.device
@@ -114,7 +145,11 @@ def _launch(D, U, b):
     work = torch.empty(_work(Bn, N, f64, dev), dtype=D.dtype, device=dev)
     _SOLVE(dev, D.data_ptr(), U.data_ptr(), b.data_ptr(), x.data_ptr(),
            work.data_ptr(), Bn, N, int(U.dim() == 4), f64)
-    block_tridiag_solve_pcr.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        if _captured is not None:
+            _captured.append((Bn, N, D.dtype))
+    else:
+        launched([(Bn, N, D.dtype)])
     return x
 
 
