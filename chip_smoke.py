@@ -243,6 +243,21 @@ Phases (each prints its lines; any failure exits non-zero):
      launches nothing eagerly; each run's wall, captures and replays; a
      step reading the host inside a capture raises.  At the end the
      fast path's kept window programs are within their bound.
+ 25. the JAX package's solve variants and the crossover bench
+     (kernels/bench_kernels.py; utils/mfu.py's looped timer: R chained
+     calls captured as one CUDA graph, differenced against one call):
+     every algorithm (Thomas, chunked SPIKE, bcr1, bcr16, the chunked
+     SPIKE with a cyclic-reduction reduced solve, K1) at N = 16, 32, 48,
+     64, 448, 768, one system in f64 (Thomas timed below 64 rows), bcr16
+     and K1 in f32 and in 9 systems in f64 (Thomas below 64 rows): looped
+     and eager ms, relative error against Thomas (f64 within 1e-9); K2 at (2168, 4), (112, 8) and K3 at (10801, 7920) in f64
+     against their twins, looped and eager; utils/mfu at N = 64, 256,
+     448 in f64 (batched λ 9): each stage's looped device time beside its
+     eager time; the bench fixture's stream with tridiag_variant="bcr16"
+     (every solve at 64 <= N < 1024, where JAX's default f64 solve is
+     bcr16): JAX's 7 windows, 275.0 s and every error within 1e-6 km of
+     JAX's default run.  The kernels' JSON gains each kernel's looped
+     time at its main-path shape.
 Each phase prints its seconds and, once the port's graph cache is
 loaded, its kept window programs, captures and drops and the card's
 reserved memory (also after each stream of phase 14's run_batch_eval).  The last two lines are the card's
@@ -440,11 +455,10 @@ def _pcr_flops(B: int, N: int) -> float:
 def _graph_nodes(fn) -> int:
     """Device operations of one call of fn: the call captured in a CUDA
     graph (after a warm call on a side stream) and the graph's nodes
-    counted by libcuda (cuGraphGetNodes): every kernel launch, memset
-    and copy the call puts on the stream is one node."""
-    import ctypes
-
+    counted by libcuda (utils/mfu.graph_nodes): every kernel launch,
+    memset and copy the call puts on the stream is one node."""
     import torch
+    from vinsat_tpu_torch.utils import mfu
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -454,15 +468,7 @@ def _graph_nodes(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
-    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.POINTER(ctypes.c_size_t)]
-    get.restype = ctypes.c_int
-    n = ctypes.c_size_t(0)
-    rc = get(graph.raw_cuda_graph(), None, ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUDA error {rc}")
-    return n.value
+    return mfu.graph_nodes(graph)
 
 
 def _per_call(fn, args, tries: int = 5, **kw):
@@ -1968,8 +1974,11 @@ def _phase23(dev, smi) -> dict:
                and logger.summary()["num_windows"] >= 1
                and {"prep", "solve", "pad_transfer"} <= set(rep),
                ("stream with logger and timer", rep))
-    rows = mfu.main(["--sizes", "256", "--repeats", "5"])
-    _check(all(r["device_ms"] > 0 for r in rows[256].values()), "mfu")
+    rows = mfu.main(["--sizes", "256", "--repeats", "5", "--loop-r", "16"])
+    # the sequential λ search's iteration holds no graph: no device time
+    _check(all(r["eager_ms"] > 0 and (r["device_ms"] > 0 if k != "iteration"
+                                      else r["device_ms"] is None)
+               for k, r in rows[256].items()), "mfu")
     return out
 
 
@@ -2086,6 +2095,157 @@ def _phase24(dev, smi) -> dict:
     _check(raised is not None, "a failed capture must raise")
     return {"k1": {t: r["launches"] for t, r in runs.items()},
             "wall": {t: r["wall"] for t, r in runs.items()}}
+
+
+TRIDIAG_N = (16, 32, 48, 64, 448, 768)
+
+
+def _phase25(dev, smi) -> dict:
+    """25. The JAX package's solve variants and the crossover bench
+    (kernels/bench_kernels.py, utils/mfu.py's looped timer) on the card:
+    (a) every algorithm of the block-tridiagonal solve at TRIDIAG_N, one
+    system in f64 (the JAX module's systems; Thomas timed below 64 rows),
+    bcr16 and K1 in f32 and in 9 systems in f64 (the stream's λ
+    candidates; with Thomas below 64 rows), its looped device
+    time, eager time and relative error against Thomas (f64: within
+    1e-9); (b) K2 at (2168, 4) and (112, 8) and K3 at (10801, 7920) in
+    f64 against their plain twins, looped and eager; (c) utils/mfu at N
+    = 64, 256, 448 in f64 with the batched λ search: each stage's looped
+    device time beside its eager time; (d) the bench fixture's stream
+    (f64, the default fast path) with tridiag_variant="bcr16": every
+    solve's N, and where each lies in 64 <= N < 1024 (JAX's default f64
+    solve is bcr16 there) the fixture's JAX result: 7 windows, 275.0 s to
+    5 km, every recorded error within 1e-6 km.  Returns the looped times
+    of K1, K2 and K3 at the main paths' shapes."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.estimation import ba, ingest, window
+    from vinsat_tpu_torch.evalx import ate
+    from vinsat_tpu_torch.kernels import bench_kernels, tridiag_pcr
+    from vinsat_tpu_torch.utils import mfu
+
+    t_phase = time.time()
+    # (a) the solve's algorithms
+    # R 4 and 2 repeats: graph replays are steady.  The eager Thomas scan
+    # (15-25 µs of host a kernel, 20-34k kernels a call at N 448-768) is
+    # timed only where it is a candidate, below 64 rows (it is still the
+    # reference of every row); f32 times bcr16 and K1 (the scans' time is
+    # f64's; PERF.md §6 has every algorithm at every N)
+    small, large = TRIDIAG_N[:4], TRIDIAG_N[4:]
+    solves = [n for n in bench_kernels.tridiag_variants(max(large), dev)
+              if n != "thomas"]
+    rows = bench_kernels.bench_tridiag(sizes=small, R=4, repeats=2,
+                                       dtype=torch.float64, device=dev)
+    rows += bench_kernels.bench_tridiag(sizes=large, R=4, repeats=2,
+                                        dtype=torch.float64, device=dev,
+                                        only=solves)
+    rows += bench_kernels.bench_tridiag(
+        sizes=TRIDIAG_N, R=4, repeats=2, dtype=torch.float32, device=dev,
+        only=("bcr_base16", "cuda_pcr"))
+    rows += bench_kernels.bench_tridiag(
+        sizes=small, R=4, repeats=2, dtype=torch.float64, device=dev,
+        batch=9, only=("thomas", "bcr_base16", "cuda_pcr"))
+    rows += bench_kernels.bench_tridiag(
+        sizes=large, R=4, repeats=2, dtype=torch.float64, device=dev,
+        batch=9, only=("bcr_base16", "cuda_pcr"))
+    by_case = collections.defaultdict(list)
+    for r in rows:
+        by_case[(r["dtype"], r["B"], r["N"])].append(r)
+    for (dt, B, N), rs in by_case.items():
+        print(f"solve N={N} B={B or 1} {dt}: " + ", ".join(
+            f"{r['variant']} {r['device_ms']:.4f} / {r['eager_ms']:.4f} ms "
+            f"(R {r['loop_R']}, rel {r['rel_err_vs_thomas']:.1e})"
+            for r in rs) + f" (looped / eager; chain "
+            f"{rs[0]['chain_ms']:.4f} ms)  [{smi}]")
+    bad = [(r["variant"], r["N"], r["B"], r["rel_err_vs_thomas"])
+           for r in rows if r["dtype"] == "float64"
+           and not r["rel_err_vs_thomas"] <= 1e-9]
+    _check(not bad, ("solve variants vs Thomas in f64", bad))
+    print(f"phase 25 (a): {time.time() - t_phase:.1f} s")
+
+    # (b) K2 and K3 at the main paths' shapes
+    k2_rows = bench_kernels.bench_assemble(
+        sizes=((2168, 4), (112, 8)), dtype=torch.float64, device=dev)
+    k3_rows = bench_kernels.bench_visible_count(
+        sizes=((10801, 7920),), dtype=torch.float64, device=dev)
+    for r in k2_rows + k3_rows:
+        shape = (f"N={r['N']} D={r['D']}" if "D" in r
+                 else f"F={r['F']} L={r['L']}")
+        lib = r["library_ms"]
+        print(f"{r['kernel']} {shape} f64: kernel {r['cuda_ms']:.4f} ms "
+              f"looped / {r['cuda_eager_ms']:.4f} ms eager, plain "
+              f"{r['plain_ms']:.4f} / {r['plain_eager_ms']:.4f} ms, library "
+              + ("none" if lib is None else f"{lib:.4f} / "
+                 f"{r['library_eager_ms']:.4f} ms")
+              + f", chain {r['chain_ms']:.4f} ms, R {r['loop_R']}  [{smi}]")
+    print(f"phase 25 (b): {time.time() - t_phase:.1f} s")
+
+    # (c) the LM stages, looped against eager
+    stage_rows = mfu.main(["--sizes", "64,256,448", "--dtype", "float64",
+                           "--loop-r", "8", "--repeats", "3",
+                           "--batched-lambda", "9"])
+    for n, rep in stage_rows.items():
+        print(f"mfu N={n} f64 (batched λ 9): " + ", ".join(
+            f"{k} {v['device_ms']:.4f} / {v['eager_ms']:.4f} ms"
+            for k, v in rep.items()) + f" (looped / eager)  [{smi}]")
+    _check(all(v["device_ms"] > 0 and v["eager_ms"] > 0
+               for rep in stage_rows.values() for v in rep.values()),
+           "mfu looped and eager times")
+    print(f"phase 25 (c): {time.time() - t_phase:.1f} s")
+
+    # (d) the bench stream with bcr16, against JAX's default f64 run
+    fx = np.load(STREAM_FIXTURE)
+    det, orbit = pipeline.stream_inputs(fx)
+    sizes = collections.Counter()
+
+    def record(orig, D, U, b, variant="auto"):
+        sizes[variant, D.shape[-3]] += 1
+        return orig(D, U, b, variant=variant)
+
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    solve.launches = 0
+    t0 = time.time()
+    with _patched(ba, "jacobi_scaled_tridiag_solve", record):
+        res = window.stream_orbit(
+            det, orbit, seed=int(fx["seed"]),
+            cfg=window.StreamingConfig(dtype="float64"), device=dev,
+            solver=ba.SolverParams(tridiag_variant="bcr16"))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ns = sorted({n for _, n in sizes})
+    print(f"stream bcr16: solves traced at N = {ns} "
+          f"(variants {sorted({v for v, _ in sizes})}; a replayed graph "
+          f"traces its solves once, at capture)")
+    _check(all(64 <= n < 1024 for n in ns),
+           ("a solve outside bcr16's range of JAX's default", ns))
+    prep = window.prepare_stream(det, orbit, int(fx["seed"]),
+                                 window.StreamingConfig(dtype="float64"),
+                                 device=dev)
+    nw = len(ingest.split_windows(prep.graph.ii, prep.knot_t))
+    same_t = np.array_equal(res.times, fx["times"])
+    d = float(np.abs(res.errors - fx["errors"]).max()) if same_t else np.inf
+    t5 = ate.time_to_threshold(res.errors, res.times, 5.0)
+    print(f"stream bcr16 (fast path {not res.sync_rerun}): {wall:.2f} s, "
+          f"{nw} windows, times equal to JAX's {same_t}, max |d error| vs "
+          f"JAX's default f64 run {d:.3e} km, time_to_5km_s {t5} (JAX "
+          f"{float(fx['time_to_5km_s'])}), final {res.errors[-1]:.6f} km "
+          f"(JAX {float(fx['final_error_km']):.6f}), K1 launches "
+          f"{solve.launches}  [{smi}]")
+    _check(same_t and d <= 1e-6 and len(res.errors) == len(fx["errors"])
+           and t5 == float(fx["time_to_5km_s"]) == 275.0
+           and nw == int(fx["num_windows"]) == 7,
+           ("bcr16 stream vs JAX's default", d, t5))
+    print(f"phase 25's wall: {time.time() - t_phase:.1f} s  [{smi}]")
+
+    def at(kernel_rows, **key):
+        return next(r for r in kernel_rows
+                    if all(r.get(k) == v for k, v in key.items()))
+
+    return {"k1": at(rows, variant="cuda_pcr", N=448, B=9,
+                     dtype="float64"),
+            "k2": at(k2_rows, N=2168), "k3": k3_rows[0],
+            "stream_wall": wall, "stream_max_d": d}
 
 
 def _cache_state() -> str:
@@ -3192,6 +3352,10 @@ def main() -> int:
     # 24. the stream's fast dispatch against its sync path
     p24 = _phase24(dev, smi)
     phase_done(24)
+
+    # 25. the solve variants, the crossover bench, looped device times
+    p25 = _phase25(dev, smi)
+    phase_done(25)
     # the fast path's graph cache stayed within its bound all along (its
     # state after every phase is on that phase's line)
     from vinsat_tpu_torch.estimation import graphs
@@ -3207,6 +3371,8 @@ def main() -> int:
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": k1_lib_ms,
          "design": "one cooperative launch, a grid barrier per PCR level",
+         "looped_ms": p25["k1"]["device_ms"],
+         "looped_shape": {"B": 9, "N": 448, "dtype": "float64"},
          "device_kernels_per_call": k1_rows[(448, "float64")][3],
          "launches_by_path": {"stream": k1_launches,
                               "stream_fast": p24["k1"]["fast_2"],
@@ -3253,6 +3419,9 @@ def main() -> int:
          "library_ms": None,
          "design": "tile boxes, then a frame per lane over the tiles the "
                    "boxes leave, staged in shared memory",
+         "looped_ms": p25["k3"]["cuda_ms"],
+         "looped_shape": {"F": 10801, "L": 7920, "dtype": "float64",
+                          "landmarks": "uniform"},
          "device_kernels_per_call": k3_dev,
          "launches_by_path": {"own_arc": k3_launches, "constellation": k3_4,
                               "batch_eval": k3_ev, "config3_own": k3_16,
@@ -3271,6 +3440,8 @@ def main() -> int:
          "design": "a warp per knot, staged in its shared slot (64 "
                    "observation slots at a time); G's upper triangle "
                    "mirrored",
+         "looped_ms": p25["k2"]["cuda_ms"],
+         "looped_shape": {"N": 2168, "D": 4, "dtype": "float64"},
          "device_kernels_per_call": k2_call[False][0],
          "launches_by_path": {"long_arc": k2_launches,
                               "sharded_stream": p18["launches"],

@@ -46,7 +46,6 @@ RENAMED = {
     # stages and their timer
     "utils/mfu.py:chip_peaks": "utils/mfu.py:card_peaks",
     "utils/mfu.py:compiled_cost": "utils/mfu.py:count",
-    "utils/mfu.py:stage_programs": "utils/mfu.py:stages",
     "utils/mfu.py:time_call": "utils/mfu.py:_time_ms",
 }
 
@@ -56,36 +55,17 @@ NOT_PORTED = {
     "bench_baseline.py": "the benchmark's CPU baseline: it belongs to the "
                          "port's benchmark change",
     "utils/cache.py": "the JAX compile cache",
-    "kernels/bench_kernels.py": "the TPU crossover bench of the Pallas "
-                                "kernels",
     "utils/checkpoint.py:save_orbax": "Orbax checkpoints JAX pytrees; the "
                                       "port's npz carries the JAX keys",
     "utils/checkpoint.py:load_orbax": "Orbax checkpoints JAX pytrees; the "
                                       "port's npz carries the JAX keys",
-    "estimation/ba.py:block_tridiag_solve_bcr": "an XLA workaround solve; "
-                                                "the port solves with K1",
-    "estimation/ba.py:block_tridiag_solve_chunked": "an XLA workaround "
-                                                    "solve; the port solves "
-                                                    "with K1",
-    "estimation/ba.py:dense_from_blocks": "the XLA workaround solves' test "
-                                          "helper",
-    "estimation/ba.py:_tridiag_general_bcr": "an XLA workaround solve",
     "estimation/ba.py:_pcr_capable": "the TPU test of the XLA dispatch",
-    "utils/mfu.py:make_looped": "XLA's compiled loops for its cost "
-                                "analysis",
-    "utils/mfu.py:time_looped": "XLA's compiled loops for its cost "
-                                "analysis",
     "dist/mesh.py:orbit_sharding": "a NamedSharding helper; the port's "
                                    "Mesh lays shards out as a dimension",
     "dist/mesh.py:arc_sharding": "a NamedSharding helper; the port's Mesh "
                                  "lays shards out as a dimension",
     "dist/mesh.py:batch_arc_sharding": "a NamedSharding helper; the port's "
                                        "Mesh lays shards out as a dimension",
-    "tools/raster.py:RasterImageServer.load_npy": "neither package calls "
-                                                  "it",
-    "tools/raster.py:RasterImageServer.load_rasterio": "neither package "
-                                                       "calls it; no "
-                                                       "rasterio",
 }
 
 # the JAX function holding each pallas_call -> (the port's wrapper module,

@@ -66,6 +66,12 @@ within 1e-5 and positions within 1e-3 px where the score is a match
 (above 0.3 for the NCC, above 0 for the CNN), grid positions exactly
 (float32 convolutions summed in another order; the card's run with TF32
 off, which the call checks by recording the flags at each convolution).
+
+The JAX package's solve variants (bcr1, bcr16, chunked SPIKE, chunked_bcr,
+Thomas) on the card against the CPU: relative 1e-12 in f64.  The looped
+timer of utils/mfu (`looped`) captures K1's chained calls as CUDA graphs,
+returns a positive time, counts no launch for the captures, and lowers R
+under a node budget.
 """
 import functools
 import json
@@ -1055,3 +1061,53 @@ def test_detect_peaks_batch_on_card_matches_cpu(with_templates):
         return ld.detect_peaks_batch(det, c)
 
     _card_vs_cpu(fn, crops, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["thomas", "chunked", "chunked_bcr",
+                                     "bcr1", "bcr16"])
+def test_tridiag_variant_on_card_matches_cpu(variant):
+    """The JAX package's solve variants (plain PyTorch ops) on the card
+    against the CPU, f64, a batch of 9 λ candidates sharing U as the λ
+    search hands it over, at N = 64 and 130 (padding and an uneven
+    chunking): relative 1e-12 (the same operations; cuBLAS sums the 9x9
+    products in another order)."""
+    dev = _cuda()
+    for N in (64, 130):
+        D, U, b = _problem(np.random.default_rng(N), 9, N)
+        args = [torch.as_tensor(a) for a in (D, U[0], b)]
+        want = ba.jacobi_scaled_tridiag_solve(*args, variant=variant)
+        got = ba.jacobi_scaled_tridiag_solve(*(a.to(dev) for a in args),
+                                             variant=variant)
+        assert _rel(got.cpu(), want) <= 1e-12, (variant, N)
+
+
+@pytest.mark.cuda
+def test_time_looped_captures_k1(monkeypatch):
+    """utils.mfu's looped timer on K1: both programs captured as CUDA
+    graphs (one device kernel a solve besides the carry's fold), replayed
+    to a positive time, and K1's launch counter untouched by the
+    capture; R is lowered under a small node budget."""
+    from vinsat_tpu_torch.utils import mfu
+
+    dev = _cuda()
+    D, U, b = (torch.as_tensor(a, device=dev)
+               for a in _problem(np.random.default_rng(1), 9, 448))
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+
+    def step(c, U):
+        return solve(c[0], U, c[1])
+
+    def chain(c, x):
+        return (c[0] + 1e-30 * x[..., :, :, None] * x[..., :, None, :],
+                c[1] + 1e-30 * x)
+
+    solve(D, U, b)
+    before = solve.launches
+    lp = mfu.looped(step, chain, (D, b), U, R=16, repeats=3)
+    assert lp.R == 16 and 1 < lp.nodes < 10, lp
+    assert np.isfinite(lp.seconds) and lp.seconds > 0
+    # the warm-up call launched; the captures and replays count nothing
+    assert solve.launches == before + 1
+    monkeypatch.setattr(mfu, "NODE_BUDGET", 4 * lp.nodes)
+    assert mfu.looped(step, chain, (D, b), U, R=16, repeats=1).R == 4

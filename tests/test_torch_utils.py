@@ -134,7 +134,7 @@ def test_mfu_counts_each_stage():
     here): every stage counts operations and bytes, the iteration more of
     both than any other stage, matrix products in all but none."""
     params = ba.SolverParams(num_hops=5, max_substep=100.0)
-    fns = mfu.stages(params)
+    fns = mfu.stage_programs(params)
     inp = mfu.example_problem(32, 8, 350.0, torch.float64, "cpu")
     args = (*inp, *mfu._solve_inputs(*inp, fns))
     c = {k: mfu.count(f, *args) for k, f in fns.items()}

@@ -11,9 +11,11 @@ differ at roundoff) and the damped system is solved blockwise.
 Solve dispatch ("auto"): as in the JAX package, a system of N < 64 block
 rows takes the plain Thomas scan; from N = 64 a CUDA tensor goes to kernel
 K1 (kernels/tridiag_pcr), a CPU tensor to K1's plain PyTorch twin.
-"pcr" and "thomas" force one of the two.
-The JAX package's XLA workaround variants (bcr*, chunked*) exist for a
-TPU compiler pathology and are not ported.
+"pcr" and "thomas" force one of the two; "chunked", "chunked_bcr", "bcr1"
+and "bcr16" force the JAX package's other algorithms (chunked SPIKE with
+a Thomas or cyclic-reduction reduced solve, block cyclic reduction to a
+base of 1 or 16 rows), which are plain PyTorch ops in JAX's operation
+order, on either device.
 
 Schedules, masks and the λ acceptance rule are the JAX package's; the
 schedule index is a host int, so α and Σ are Python floats here
@@ -104,7 +106,8 @@ class SolverParams(NamedTuple):
     conv_rtol: float = 0.01
     conv_patience: int = 10_000
     # "auto" (Thomas below PCR_MIN_N block rows, else "pcr"), "pcr" (kernel
-    # K1 or its twin by device) or "thomas"
+    # K1 or its twin by device), or one of the JAX package's algorithms:
+    # "thomas", "chunked", "chunked_bcr", "bcr1", "bcr16"
     tridiag_variant: str = "auto"
 
 
@@ -246,6 +249,261 @@ def _tridiag_general(Dr, Ur, Lr, br):
     return torch.stack(xs, dim=-2)
 
 
+def _mv(A, x):
+    """Batched matrix-vector product: A (..., m, n), x (..., n)."""
+    return (A @ x[..., None])[..., 0]
+
+
+def _identity_padded(D, b, n: int):
+    """D (..., N, k, k) and b (..., N, k) padded to n rows with identity
+    diagonal blocks and zero right-hand sides."""
+    N, k = D.shape[-3], D.shape[-1]
+    lead = D.shape[:-3]
+    eye = torch.eye(k, dtype=D.dtype, device=D.device)
+    return (torch.cat([D, eye.expand(*lead, n - N, k, k)], dim=-3),
+            torch.cat([b, b.new_zeros(*lead, n - N, k)], dim=-2))
+
+
+def _pad_rows(X, before: int, after: int):
+    """X (..., n, k, k) with `before` zero blocks ahead and `after` behind."""
+    lead, k = X.shape[:-3], X.shape[-1]
+    return torch.cat([X.new_zeros(*lead, before, k, k), X,
+                      X.new_zeros(*lead, after, k, k)], dim=-3)
+
+
+def _shift_down(X, dim: int):
+    """X moved one row down along `dim` (-3 for blocks, -2 for vectors), a
+    zero first row: the JAX package's concatenate([zeros(1), X[:-1]])."""
+    n = X.shape[dim]
+    return torch.cat([torch.zeros_like(X.narrow(dim, 0, 1)),
+                      X.narrow(dim, 0, n - 1)], dim=dim)
+
+
+def _tridiag_general_bcr(Dr, Ur, Lr, br, base: int = 4):
+    """General (nonsymmetric) block cyclic reduction of
+        L_t y_{t-1} + D_t y_t + U_t y_{t+1} = b_t
+    (Lr[..., 0] and Ur[..., -1] ignored): log-depth, 2 log2(C/base) + base
+    levels of batched ops, the reduced solve of the chunked SPIKE.  Dr, Ur,
+    Lr (..., C, k, k); br (..., C, k) -> (..., C, k).  Each level
+    eliminates the odd rows with one pivoted Gauss-Jordan of D_o against
+    [L_o | U_o | b_o]; C is padded to a power of two with identity
+    diagonal blocks.  The JAX package's operation order."""
+    C, k = Dr.shape[-3], Dr.shape[-1]
+    lead = Dr.shape[:-3]
+    n = 1 << (max(C, 2) - 1).bit_length()
+    Dp, bp = _identity_padded(Dr, br, n)
+    Up = _pad_rows(Ur[..., :C - 1, :, :], 0, n - C + 1)
+    Lp = _pad_rows(Lr[..., 1:C, :, :], 1, n - C)
+
+    stack = []
+    while n > max(base, 1):
+        D2 = Dp.reshape(*lead, n // 2, 2, k, k)
+        U2 = Up.reshape(*lead, n // 2, 2, k, k)
+        L2 = Lp.reshape(*lead, n // 2, 2, k, k)
+        b2 = bp.reshape(*lead, n // 2, 2, k)
+        D_e, D_o = D2[..., 0, :, :], D2[..., 1, :, :]
+        # U_e: even -> odd of the same t; U_o: odd -> even t + 1
+        U_e, U_o = U2[..., 0, :, :], U2[..., 1, :, :]
+        # L_o: odd -> even of the same t; L_e: even -> odd t - 1
+        L_e, L_o = L2[..., 0, :, :], L2[..., 1, :, :]
+        b_e, b_o = b2[..., 0, :], b2[..., 1, :]
+
+        sol = gj_solve_small(
+            D_o, torch.cat([L_o, U_o, b_o[..., None]], dim=-1), pivot=True)
+        Dinv_L, Dinv_U = sol[..., :k], sol[..., k:2 * k]
+        Dinv_b = sol[..., 2 * k]
+        stack.append((Dinv_L, Dinv_U, Dinv_b))
+
+        # the odd row of the same t (through U_e), then the one of t - 1
+        # (through L_e)
+        D_new = D_e - U_e @ Dinv_L
+        U_new = -(U_e @ Dinv_U)
+        b_new = b_e - _mv(U_e, Dinv_b)
+        D_new = D_new - L_e @ _shift_down(Dinv_U, -3)
+        L_new = -(L_e @ _shift_down(Dinv_L, -3))
+        b_new = b_new - _mv(L_e, _shift_down(Dinv_b, -2))
+
+        Dp, Up, Lp, bp = D_new, U_new, L_new, b_new
+        n //= 2
+
+    if n == 1:
+        y = gj_solve_small(Dp[..., 0, :, :], bp[..., 0, :, None],
+                           pivot=True)[..., 0][..., None, :]
+    else:
+        y = _tridiag_general(Dp, Up[..., :-1, :, :], Lp, bp)
+
+    for Dinv_L, Dinv_U, Dinv_b in reversed(stack):
+        m = Dinv_b.shape[-2]
+        y_next = torch.cat([y[..., 1:, :], torch.zeros_like(y[..., :1, :])],
+                           dim=-2)
+        y_o = Dinv_b - _mv(Dinv_L, y) - _mv(Dinv_U, y_next)
+        y = torch.stack([y, y_o], dim=-2).reshape(*lead, 2 * m, k)
+    return y[..., :C, :]
+
+
+def block_tridiag_solve_chunked(D, U, b, num_chunks: int,
+                                reduced: str = "thomas"):
+    """Chunked SPIKE solve of the symmetric block-tridiagonal system: the N
+    rows split into `num_chunks` chunks of m, each Thomas-eliminated with
+    the block right-hand side [b | L_first | U_last] (all chunks at once,
+    a batch axis), the reduced system of the chunks' boundary unknowns
+    (block tridiagonal, 2k x 2k blocks) solved by a pivoted Thomas
+    recursion ("thomas") or cyclic reduction ("bcr"), then every chunk
+    back-substituted at once.  Sequential depth m + 2·num_chunks instead
+    of N.  D (..., N, k, k), U (..., N-1, k, k) or (N-1, k, k), b (...,
+    N, k); N must be a multiple of num_chunks; num_chunks <= 1 is the
+    plain Thomas scan."""
+    N, k = D.shape[-3], D.shape[-1]
+    if num_chunks <= 1:
+        return block_tridiag_solve(D, U, b)
+    if N % num_chunks:
+        raise ValueError(f"N={N} is not a multiple of num_chunks="
+                         f"{num_chunks}")
+    lead = D.shape[:-3]
+    C, m = num_chunks, N // num_chunks
+    U_pad = _pad_rows(U.expand(*lead, N - 1, k, k), 0, 1)
+    Dc = D.reshape(*lead, C, m, k, k)
+    Uc = U_pad.reshape(*lead, C, m, k, k)  # Uc[c, -1] couples to chunk c+1
+    bc = b.reshape(*lead, C, m, k)
+    # each chunk's left coupling: the previous chunk's last U, transposed
+    L_first = _shift_down(Uc[..., -1, :, :], -3).transpose(-1, -2)
+    zeros = Dc.new_zeros(*lead, C, m - 1, k, k)
+    rhs = torch.cat([bc[..., None],
+                     torch.cat([L_first[..., None, :, :], zeros], dim=-3),
+                     torch.cat([zeros, Uc[..., -1:, :, :]], dim=-3)], dim=-1)
+    sol = block_tridiag_solve_blockrhs(Dc, Uc[..., :-1, :, :], rhs)
+    g, V, W = sol[..., 0], sol[..., 1:1 + k], sol[..., 1 + k:]
+
+    # the reduced system in y_c = [x_first_c, x_last_c]: chunk c couples to
+    # c - 1 through V and to c + 1 through W
+    k2 = 2 * k
+    Dr = torch.eye(k2, dtype=D.dtype, device=D.device).expand(
+        *lead, C, k2, k2)
+    Lr = torch.cat([Dc.new_zeros(*lead, C, k2, k),
+                    torch.cat([V[..., 0, :, :], V[..., -1, :, :]], dim=-2)],
+                   dim=-1)
+    Ur = torch.cat([torch.cat([W[..., 0, :, :], W[..., -1, :, :]], dim=-2),
+                    Dc.new_zeros(*lead, C, k2, k)], dim=-1)
+    br = torch.cat([g[..., 0, :], g[..., -1, :]], dim=-1)
+    if reduced == "bcr":
+        y2 = _tridiag_general_bcr(Dr, Ur, Lr, br)
+    else:
+        y2 = _tridiag_general(Dr, Ur[..., :-1, :, :], Lr, br)
+
+    # the last boundary of chunk c - 1 and the first of chunk c + 1
+    x_left = _shift_down(y2[..., k:], -2)
+    x_right = torch.cat([y2[..., 1:, :k], torch.zeros_like(y2[..., :1, :k])],
+                        dim=-2)
+    x = g - _mv(V, x_left[..., None, :]) - _mv(W, x_right[..., None, :])
+    return x.reshape(*lead, N, k)
+
+
+def block_tridiag_solve_bcr(D, U, b, base: int = 16):
+    """Block cyclic reduction of the symmetric block-tridiagonal system:
+    sequential depth 2·log2(N/base) + base of batched 9x9 ops.  Each level
+    eliminates the odd block rows with one Gauss-Jordan of D_o against
+    [U_oe | U_eoᵀ | b_o]:
+        D'_t = D_e[t] - U_oe[t-1]ᵀ D_o[t-1]⁻¹ U_oe[t-1]
+                      - U_eo[t] D_o[t]⁻¹ U_eo[t]ᵀ
+        U'_t = -U_eo[t] D_o[t]⁻¹ U_oe[t]
+        b'_t = b_e[t] - U_oe[t-1]ᵀ D_o[t-1]⁻¹ b_o[t-1]
+                      - U_eo[t] D_o[t]⁻¹ b_o[t]
+    until `base` rows are left, which a Thomas scan solves; then the odd
+    unknowns are back-substituted level by level.  N is padded to a power
+    of two with identity diagonal blocks; the even/odd split is a reshape,
+    as in the JAX package, whose operation order this keeps.  D (..., N,
+    k, k), U (..., N-1, k, k) or (N-1, k, k), b (..., N, k)."""
+    N, k = D.shape[-3], D.shape[-1]
+    lead = D.shape[:-3]
+    n = 1 << (max(N, 2) - 1).bit_length()
+    Dp, bp = _identity_padded(D, b, n)
+    Up = _pad_rows(U.expand(*lead, N - 1, k, k), 0, n - N + 1)
+
+    stack = []
+    while n > max(base, 1):
+        D2 = Dp.reshape(*lead, n // 2, 2, k, k)
+        U2 = Up.reshape(*lead, n // 2, 2, k, k)
+        b2 = bp.reshape(*lead, n // 2, 2, k)
+        D_e, D_o = D2[..., 0, :, :], D2[..., 1, :, :]
+        U_eo = U2[..., 0, :, :]  # even i -> odd i+1
+        U_oe = U2[..., 1, :, :]  # odd o -> even o+1 (the last one padding)
+        b_e, b_o = b2[..., 0, :], b2[..., 1, :]
+
+        sol = gj_solve_small(D_o, torch.cat(
+            [U_oe, U_eo.transpose(-1, -2), b_o[..., None]], dim=-1))
+        Dinv_Uoe = sol[..., :k]
+        Dinv_UeoT = sol[..., k:2 * k]
+        Dinv_b = sol[..., 2 * k]
+        stack.append((Dinv_Uoe, Dinv_UeoT, Dinv_b))
+
+        # the right neighbour (odd 2t+1), then the left one (odd 2t-1): the
+        # JAX package's .at[1:].add(-term[:-1]), out of place
+        D_new = D_e - U_eo @ Dinv_UeoT
+        b_new = b_e - _mv(U_eo, Dinv_b)
+        U_new = -(U_eo @ Dinv_Uoe)
+        UoeT = U_oe.transpose(-1, -2)
+        L_term = UoeT @ Dinv_Uoe
+        bL_term = _mv(UoeT, Dinv_b)
+        D_new = torch.cat([D_new[..., :1, :, :],
+                           D_new[..., 1:, :, :] + -L_term[..., :-1, :, :]],
+                          dim=-3)
+        b_new = torch.cat([b_new[..., :1, :],
+                           b_new[..., 1:, :] + -bL_term[..., :-1, :]],
+                          dim=-2)
+
+        Dp, Up, bp = D_new, U_new, b_new
+        n //= 2
+
+    if n == 1:
+        x = gj_solve_small(Dp[..., 0, :, :],
+                           bp[..., 0, :, None])[..., 0][..., None, :]
+    else:
+        x = block_tridiag_solve(Dp, Up[..., :-1, :, :], bp)
+
+    for Dinv_Uoe, Dinv_UeoT, Dinv_b in reversed(stack):
+        m = Dinv_b.shape[-2]
+        x_next = torch.cat([x[..., 1:, :], torch.zeros_like(x[..., :1, :])],
+                           dim=-2)
+        x_o = Dinv_b - _mv(Dinv_UeoT, x) - _mv(Dinv_Uoe, x_next)
+        x = torch.stack([x, x_o], dim=-2).reshape(*lead, 2 * m, k)
+    return x[..., :N, :]
+
+
+def dense_from_blocks(D, U):
+    """The dense symmetric matrix (Nk, Nk) of the block-tridiagonal system
+    D (N, k, k), U (N-1, k, k): a validation helper."""
+    N, k = D.shape[0], D.shape[-1]
+    H = D.new_zeros(N * k, N * k)
+    for t in range(N):
+        H[t * k:(t + 1) * k, t * k:(t + 1) * k] = D[t]
+    for t in range(N - 1):
+        H[t * k:(t + 1) * k, (t + 1) * k:(t + 2) * k] = U[t]
+        H[(t + 1) * k:(t + 2) * k, t * k:(t + 1) * k] = U[t].T
+    return H
+
+
+def _bcr_chunks(N: int) -> int:
+    """Chunks of the cyclic-reduction-reduced chunked SPIKE: the largest
+    power-of-two divisor of N that keeps chunks of m >= 32 rows (the JAX
+    package's choice)."""
+    c = 1
+    while N % (2 * c) == 0 and N // (2 * c) >= 32:
+        c *= 2
+    return c
+
+
+def _auto_chunks(N: int) -> int:
+    """Chunks of the chunked SPIKE: the largest power-of-two divisor of N
+    that is <= sqrt(N), 1 (the plain scan) below 128 rows (the JAX
+    package's choice: it minimizes the sequential depth m + 2C)."""
+    if N < 128:
+        return 1
+    c = 1
+    while (2 * c) * (2 * c) <= N and N % (2 * c) == 0:
+        c *= 2
+    return c
+
+
 # The JAX package's f64 "auto" solve takes the plain scan below 64 rows
 # (vinsat_tpu/estimation/ba.py:258-266, _auto_chunks: 1 chunk below 128).
 PCR_MIN_N = 64
@@ -262,18 +520,28 @@ def jacobi_scaled_tridiag_solve(D, U, b, variant: str = "auto"):
     Ds = D * s[..., :, :, None] * s[..., :, None, :]
     Us = U * s[..., :-1, :, None] * s[..., 1:, None, :]
     bs = b * s
+    N = D.shape[-3]
     if variant == "auto":
-        variant = "pcr" if D.shape[-3] >= PCR_MIN_N else "thomas"
+        variant = "pcr" if N >= PCR_MIN_N else "thomas"
     if variant == "pcr":
         from vinsat_tpu_torch.kernels.tridiag_pcr import (
             block_tridiag_solve_pcr)
 
-        lead, N = Ds.shape[:-3], Ds.shape[-3]
+        lead = Ds.shape[:-3]
         xs = block_tridiag_solve_pcr(
             Ds.reshape(-1, N, 9, 9), Us.reshape(-1, N - 1, 9, 9),
             bs.reshape(-1, N, 9)).reshape(*lead, N, 9)
     elif variant == "thomas":
         xs = block_tridiag_solve(Ds, Us, bs)
+    elif variant == "chunked":
+        xs = block_tridiag_solve_chunked(Ds, Us, bs, _auto_chunks(N))
+    elif variant == "chunked_bcr":
+        xs = block_tridiag_solve_chunked(Ds, Us, bs, _bcr_chunks(N),
+                                         reduced="bcr")
+    elif variant == "bcr1":
+        xs = block_tridiag_solve_bcr(Ds, Us, bs, base=1)
+    elif variant == "bcr16":
+        xs = block_tridiag_solve_bcr(Ds, Us, bs, base=16)
     else:
         raise ValueError(f"unknown tridiag variant {variant!r}")
     return xs * s

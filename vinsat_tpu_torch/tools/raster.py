@@ -3,9 +3,10 @@ crops (port of vinsat_tpu/tools/raster.py, host numpy).
 
 `Affine` maps pixels to world coordinates; `RasterImageServer` keeps one
 HWC uint8 image a region and cuts the window covering a world box,
-zero-padded where the box leaves the image.  The JAX package's file
-loaders (npy, and GeoTIFF through rasterio) are left out: images are
-registered as arrays.  The crops are host work, as in the JAX package:
+zero-padded where the box leaves the image.  Images are registered as
+arrays, or loaded from an .npy file or a GeoTIFF (through rasterio where
+it is installed, as in the JAX package).  The crops are host work, as in
+the JAX package:
 through the port's C++ host runtime (native.crop_window) where it is
 available, else numpy; the imagery path uploads them to the device as
 uint8.
@@ -54,6 +55,24 @@ class RasterImageServer:
         """Register an HWC uint8 image for a region."""
         self._images[region] = (np.ascontiguousarray(image, np.uint8),
                                 transform)
+
+    def load_npy(self, region: str, image_path: str, transform: Affine):
+        """Register the HWC uint8 image of an .npy file for a region."""
+        self.register(region, np.load(image_path), transform)
+
+    def load_rasterio(self, region: str, tif_path: str) -> bool:
+        """Register a GeoTIFF's first three bands with its affine transform
+        through rasterio; False (nothing loaded) where rasterio is not
+        installed."""
+        try:
+            import rasterio
+        except ImportError:
+            return False
+        with rasterio.open(tif_path) as src:
+            t = src.transform
+            data = np.moveaxis(src.read((1, 2, 3)), 0, -1)
+        self.register(region, data, Affine(t.a, t.b, t.c, t.d, t.e, t.f))
+        return True
 
     def regions(self):
         return list(self._images)
