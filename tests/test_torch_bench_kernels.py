@@ -80,7 +80,9 @@ def test_bench_assemble_and_visible_count_rows():
 def test_bench_main_needs_a_card_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    for argv in ([], ["tridiag", "--dtype", "float64"]):
+    for argv in ([], ["tridiag", "--dtype", "float64"],
+                 ["tridiag", "--sizes", "768", "--batch", "8", "--only",
+                  "thomas,cuda_pcr"], ["assemble", "--sizes", "112x8"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench_kernels.main(argv)
 

@@ -52,8 +52,6 @@ RENAMED = {
 # "module:name" of the JAX package (a module alone: all of it) -> why the
 # port leaves it out
 NOT_PORTED = {
-    "bench_baseline.py": "the benchmark's CPU baseline: it belongs to the "
-                         "port's benchmark change",
     "utils/cache.py": "the JAX compile cache",
     "utils/checkpoint.py:save_orbax": "Orbax checkpoints JAX pytrees; the "
                                       "port's npz carries the JAX keys",
@@ -108,12 +106,24 @@ def _defined(package: pathlib.Path, module: str) -> set:
     return names
 
 
+# module-level assignments that make a function: `solve_window =
+# jax.jit(_solve_window, ...)` is as public as a def
+_TRANSFORMS = ("jax.jit", "jax.vmap", "jax.pmap", "functools.partial")
+
+
 def _public(module: str) -> list:
-    """The public functions and classes of a JAX module, in order."""
-    return [node.name for node in _tree(JAX / module).body
-            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
-                                 ast.ClassDef))
-            and not node.name.startswith("_")]
+    """The public functions and classes of a JAX module, in order: its
+    defs and classes, and its names bound to a JAX transform's result."""
+    names = []
+    for node in _tree(JAX / module).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.append(node.name)
+        elif (isinstance(node, ast.Assign)
+              and isinstance(node.value, ast.Call)
+              and ast.unparse(node.value.func) in _TRANSFORMS):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return [n for n in names if not n.startswith("_")]
 
 
 def _modules() -> list:

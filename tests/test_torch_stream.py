@@ -141,3 +141,25 @@ def test_fixture_is_complete():
     assert fx["final_states"].shape == (len(fx["knot_times"]), 10)
     assert fx["refined_states"].shape == fx["final_states"].shape
     assert float(fx["final_error_km"]) == float(fx["errors"][-1])
+
+
+@pytest.mark.parametrize("length", [50, 80])
+def test_propagate_segment_matches_jax(length):
+    """The JAX package's public `propagate_segment` (a jit of its
+    `_propagate_impl`) and the port's, with JAX's signature: 64 steps
+    padded, `length` of them run (80: clipped at max_len)."""
+    import jax.numpy as jnp
+    import torch
+
+    from torch_parity import random_states
+    from vinsat_tpu.estimation import window as jwindow
+
+    rng = np.random.default_rng(5)
+    state = random_states(rng, 1)[0]
+    omega = rng.normal(size=(64, 3)) * 1e-3
+    want = np.asarray(jwindow.propagate_segment(
+        jnp.asarray(state), jnp.asarray(omega), length, max_len=64))
+    got = window.propagate_segment(torch.as_tensor(state),
+                                   torch.as_tensor(omega), length, 64)
+    assert got.shape == want.shape == (65, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-9)

@@ -207,6 +207,17 @@ def _solve_window(states0, prob: ba.BAProblem, lamda_init, init_iters: int,
                     frozen)
 
 
+def solve_window(states0, prob: ba.BAProblem, lamda_init, init_iters,
+                 num_iters: int, params: ba.SolverParams = ba.SolverParams(),
+                 sched_offset=0):
+    """The JAX package's `solve_window` (its jit of `_solve_window`) with
+    its call signature: init_iters and sched_offset may be host ints or
+    0-d arrays (the JAX package traces them), lamda_init a float or a 0-d
+    tensor.  Returns (states, lamda, last_hessian, mean_residual)."""
+    return _solve_window(states0, prob, lamda_init, int(init_iters),
+                         num_iters, params, int(sched_offset))
+
+
 def _lm_signature(i: int, init_iters: int, num_iters: int,
                   params: ba.SolverParams, sched_offset: int = 0) -> tuple:
     """The host values iteration i of `_solve_window` runs with besides its
@@ -300,6 +311,15 @@ def _propagate_impl(state10, omega_seq, length: int):
     else:
         qs = q[None]
     return torch.cat([xs[:, :3], qs, xs[:, 3:6]], dim=-1)
+
+
+def propagate_segment(state10, omega_seq, length, max_len: int):
+    """The JAX package's `propagate_segment` (its jit of `_propagate_impl`)
+    with its signature: (max_len + 1, 10), the first min(length, max_len)
+    steps run and the entries past them holding the final state."""
+    steps = min(int(length), max_len)
+    path = _propagate_impl(state10, omega_seq, steps)
+    return torch.cat([path, path[-1:].expand(max_len - steps, 10)])
 
 
 def _sq_dist_km(pos, gt_pos):

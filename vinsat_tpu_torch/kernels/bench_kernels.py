@@ -38,7 +38,11 @@ kernels' launch counters are restored when a bench returns.
 
     python -m vinsat_tpu_torch.kernels.bench_kernels \\
         [visible_count] [assemble] [tridiag] [--dtype float32|float64] \\
-        [--device cuda]
+        [--device cuda] [--sizes S,S,...] [--batch B] [--only A,A,...]
+
+--sizes replaces each named bench's sweep (N for tridiag, FxL for
+visible_count, NxD for assemble), --batch solves B systems at once and
+--only keeps the named algorithms (tridiag).
 
 The first line names the card (nvidia-smi's name and power limit); then
 one JSON line a (kernel, size) or (algorithm, size).  It needs a card;
@@ -279,8 +283,21 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sizes", default=None,
+                    help="comma-separated sizes in place of each bench's "
+                         "sweep: N (tridiag), FxL (visible_count), NxD "
+                         "(assemble)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="tridiag: B systems solved at once")
+    ap.add_argument("--only", default=None,
+                    help="tridiag: comma-separated algorithm names "
+                         "(tridiag_variants)")
     args = ap.parse_args(argv)
     benches = args.benches or ["visible_count", "assemble"]
+    sizes = (None if args.sizes is None else
+             [tuple(int(x) for x in s.split("x"))
+              for s in args.sizes.split(",")])
+    only = None if args.only is None else args.only.split(",")
     device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -288,12 +305,16 @@ def main(argv=None):
     print(json.dumps({"device": name, "nvidia_smi": mfu._smi(),
                       "dtype": args.dtype}), flush=True)
     rows = []
+    kw = {} if sizes is None else {"sizes": sizes}
     if "visible_count" in benches:
-        rows += bench_visible_count(dtype=dtype, device=device)
+        rows += bench_visible_count(dtype=dtype, device=device, **kw)
     if "assemble" in benches:
-        rows += bench_assemble(dtype=dtype, device=device)
+        rows += bench_assemble(dtype=dtype, device=device, **kw)
     if "tridiag" in benches:
-        rows += bench_tridiag(dtype=dtype, device=device)
+        if sizes is not None:
+            kw["sizes"] = [n for n, in sizes]
+        rows += bench_tridiag(dtype=dtype, device=device, batch=args.batch,
+                              only=only, **kw)
     return rows
 
 
