@@ -102,10 +102,13 @@ Phases (each prints its lines; any failure exits non-zero):
      bounds within 1e-6 relative and n_obs equal; the summary's fractions
      and median times equal to JAX's, its median final error within 0.01
      km; K3 launched once an orbit, K1 launched; a line an orbit (its
-     row, walls, captures and replays).  The 16 orbits run in 4
-     processes of their own (4 orbits each), and beside them here
-     run_batch_eval([0, 1]) at 3600 s from the port's own generator: a
-     finite summary and its per-orbit rows;
+     row, walls, captures and replays).  Orbit 1 is phase 7's simulation
+     (the same draws and duration, checked), streamed here; the other 15
+     run in 4 processes of their own, each taking the next orbit that no
+     process has claimed, and beside them here run_batch_eval([0, 1]) at
+     3600 s from the port's own generator (a finite summary and its
+     per-orbit rows), then orbit 1 and the orbits still unclaimed; every
+     orbit taken once;
  15. the f32 stream: torch's f32 matmuls checked true f32 (no TF32), the
      fixture of 4 streamed with StreamingConfig(dtype="float32") by the
      default fast path (not re-run in sync mode, no trip) and by the sync
@@ -160,7 +163,12 @@ Phases (each prints its lines; any failure exits non-zero):
      final within 0.01 km of JAX's f32 run, the final within 0.05 km of
      the f64 one (a near tie of the last window's best iterate in f32), K2
      launched in f32; K2 timed at the largest (N, D) of the f64 and the
-     f32 run;
+     f32 run; then the BA_reg prior coefficients at (0.5, 2.0) from JAX's
+     inputs and results (tests/data/torch_prior_coeffs.npz): one
+     ba_reg_iteration at 80 block rows (K1 launched) within 1e-9 relative
+     of JAX's, λ equal, and one sharded window solve with a prior over 4
+     arc shards (K2 launched) within 1e-8, each moved by more than 1e-6
+     from the port's result at (1, 1);
  19. configs 4, 5(a) and 2 in f32 on JAX's data: config 4 (phase 13's
      sequences): every K1 launch at (8, 768) in f32, each orbit's median
      within 0.01 km of JAX's f32 median and 0.02 km of its f64 one (JAX's
@@ -288,9 +296,16 @@ Phases (each prints its lines; any failure exits non-zero):
      host's CPU model (printed, not gated).
 Each phase prints its seconds and, once the port's graph cache is
 loaded, its kept window programs, captures and drops and the card's
-reserved memory (also after each stream of phase 14's run_batch_eval).  The last two lines are the card's
-nvidia-smi line and the device JSON line; the kernels' JSON record comes
-before them.  Needs torch with CUDA and nvcc; imports no JAX.
+reserved memory (also after each stream of phase 14's run_batch_eval).
+A computation that two phases need with the same inputs and settings runs
+once and feeds both: phase 7's mode-b simulation is phase 14's orbit 1,
+each stream's own prepared inputs give its window count (and phase 5 its
+inputs), phase 22's fixture replays give its profiled detection stage its
+crops, and phase 23 scores both detectors on one rendering of the scenes.
+Before the kernels' JSON record comes the count of the _check calls that
+ran (gates), those of phase 14's processes included; the last two lines
+are the card's nvidia-smi line and the device JSON line.  Needs torch
+with CUDA and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
@@ -317,6 +332,8 @@ MODES_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_modes_seed1.npz")
 DIST_FIXTURE = os.path.join(ROOT, "tests", "data",
                             "torch_dist_stream_seed1.npz")
 HIFI_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_hifi_seed1.npz")
+PRIOR_COEFFS_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                    "torch_prior_coeffs.npz")
 IMAGERY_FIXTURE = os.path.join(ROOT, "tests", "data",
                                "torch_imagery_seed1.npz")
 DETECTOR_FIXTURE = os.path.join(ROOT, "tests", "data",
@@ -348,7 +365,13 @@ INSTR_F64, INSTR_F32 = 34e12 / 2, 67e12 / 2
 PAD_CYCLES = 2_000_000  # ~1 ms spin around each profiled call
 
 
+# the _check calls that ran in this process ("checks") and those that ran
+# in the subprocesses of this script that report theirs back ("reported")
+GATES = {"checks": 0, "reported": 0, "processes": 0}
+
+
 def _check(ok, what) -> None:
+    GATES["checks"] += 1
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
@@ -1046,6 +1069,106 @@ def _phase18(dev, smi) -> dict:
     out["shape"] = _k2_at_shape(*big_b, 1e-12, "5(b)'s largest window", smi)
     out["shape_f32"] = _k2_at_shape(*big_f, 1e-5,
                                     "5(b)'s largest window in f32", smi)
+    out["prior_coeffs"] = _prior_coeffs(dev, smi)
+    return out
+
+
+def _prior_coeffs(dev, smi) -> dict:
+    """The BA_reg prior coefficients at JAX's non-default pair (0.5, 2.0)
+    on the card, from JAX's inputs and results (tests/data/
+    torch_prior_coeffs.npz): one ba_reg_iteration at 80 block rows, whose
+    λ trials K1 solves, within 1e-9 relative of JAX's with JAX's λ; one
+    sharded window solve with a prior over 4 arc shards, which K2
+    assembles, within 1e-8; each moved by more than 1e-6 relative from
+    the port's result at (1, 1).  Returns K1's and K2's launches in the
+    two."""
+    import numpy as np
+    import torch
+    from vinsat_tpu_torch.dist import mesh, sharded_ba
+    from vinsat_tpu_torch.estimation import ba
+    from vinsat_tpu_torch.kernels import normal_eq, tridiag_pcr
+
+    fx = np.load(PRIOR_COEFFS_FIXTURE)
+    q, v = (float(c) for c in fx["coeffs"])
+    k1, k2 = tridiag_pcr.block_tridiag_solve_pcr, normal_eq.assemble_normal_eq
+
+    def fields(prefix):
+        return {k[len(prefix):]: fx[k] for k in fx.files
+                if k.startswith(prefix)}
+
+    def rel(got, want):
+        want = np.asarray(want)
+        return float(np.abs(got.cpu().numpy() - want).max()
+                     / np.abs(want).max())
+
+    def dev_t(a):
+        return torch.as_tensor(a, device=dev)
+
+    # one regularized iteration (sequential λ search, f64 "auto": K1)
+    prob = ba.problem_from_numpy(fields("reg_prob_"), dev)
+    prior = ba.PriorState(*(dev_t(fx[f"reg_prior_{k}"])
+                            for k in ba.PriorState._fields))
+    params = ba.SolverParams(**json.loads(str(fx["reg_params"])))
+
+    def reg(qc, vc):
+        return ba.ba_reg_iteration(
+            int(fx["reg_sched_iter"]), dev_t(fx["reg_states0"]), prob, prior,
+            float(fx["reg_lamda"]), params=params, quat_coeff_prior=qc,
+            vel_coeff_prior=vc)
+
+    k1.launches = k2.launches = 0
+    got = reg(q, v)
+    torch.cuda.synchronize()
+    out = {"k1": k1.launches}
+    d_reg = {k: rel(getattr(got, k), fx[f"reg_out_{k}"])
+             for k in ("states", "last_hessian", "mean_residual")}
+    lam_eq = float(got.lamda_init) == float(fx["reg_out_lamda_init"])
+    moved_reg = rel(reg(1.0, 1.0).mean_residual, got.mean_residual.cpu())
+
+    # the window solve on 4 arc shards with a prior (K2 assembles)
+    P, num_iters, max_iters, init_iters = (int(a) for a in fx["solve_args"])
+    f = fields("solve_prob_")
+    sprob = sharded_ba.sharded_problem_from_numpy(f, P, dev)
+    Nl = f["states"].shape[1] // P
+    sprior = sharded_ba.ShardedPrior(*(
+        dev_t(fx[f"solve_prior_{k}"]).reshape(
+            (1, P, Nl) + fx[f"solve_prior_{k}"].shape[2:])
+        for k in sharded_ba.ShardedPrior._fields))
+    sparams = ba.SolverParams(max_iters=max_iters,
+                              **json.loads(str(fx["solve_params"])))
+
+    def solve(qc, vc):
+        return sharded_ba.make_sharded_window_solver(
+            mesh.make_mesh(1, P, device=dev), sparams, num_iters=num_iters,
+            init_iters=init_iters, with_prior=True, quat_coeff_prior=qc,
+            vel_coeff_prior=vc)(
+            torch.full((1,), 1e-4, dtype=torch.float64, device=dev), sprob,
+            sprior)
+
+    k1.launches = k2.launches = 0
+    st, lam, res = solve(q, v)
+    torch.cuda.synchronize()
+    out["k2"] = k2.launches
+    d_solve = {"states": rel(st.reshape(1, -1, 10), fx["solve_out_0"]),
+               "lamda": rel(lam, fx["solve_out_1"]),
+               "mean_residual": rel(res, fx["solve_out_2"])}
+    moved_solve = rel(solve(1.0, 1.0)[0], st.cpu())
+    print(f"prior coefficients ({q}, {v}): ba_reg_iteration at "
+          f"{prob.gaps.shape[0]} block rows rel vs JAX "
+          + ", ".join(f"{k} {e:.3e}" for k, e in d_reg.items())
+          + f", λ equal {lam_eq}, K1 launches {out['k1']}, moved from "
+          f"(1, 1) by {moved_reg:.3e} (mean residual); sharded window solve "
+          f"({P} arc shards, {num_iters} iterations) rel vs JAX "
+          + ", ".join(f"{k} {e:.3e}" for k, e in d_solve.items())
+          + f", K2 launches {out['k2']}, moved from (1, 1) by "
+          f"{moved_solve:.3e} (states)  [{smi}]")
+    _check(lam_eq and max(d_reg.values()) <= 1e-9 and out["k1"] > 0
+           and moved_reg > 1e-6, ("ba_reg_iteration at the prior "
+                                  "coefficients", d_reg, out, moved_reg))
+    _check(max(d_solve.values()) <= 1e-8 and out["k2"] > 0
+           and moved_solve > 1e-6, ("sharded solve at the prior "
+                                    "coefficients", d_solve, out,
+                                    moved_solve))
     return out
 
 
@@ -1566,15 +1689,26 @@ def _phase22(dev, smi) -> dict:
     fx = np.load(IMAGERY_FIXTURE)
     det = ld.load_detector(DETECTOR_FIXTURE, device=dev)
     out = {"k1": {}}
+    # each case's scene (stages 0-2) and crop shape, kept for the detection
+    # stage's profile below
+    scenes = {}
+
+    def keep_scene(build, *a, **k):
+        scenes[case] = build(*a, **k)
+        return scenes[case]
+
     for case, tag, gate in (("a", "NCC", 0.55), ("b", "PatchCNN", 0.5)):
         draws, rasters, kw = _imagery_case(fx, case)
         detector = det if case == "b" else None
-        seq, res, k1n, _, _ = _imagery_run(
-            f"imagery fixture {case} ({tag})", dev, smi,
-            lambda: pipeline.simulate_imagery_from_draws(
-                draws, rasters=rasters, detector=detector, device=dev, **kw))
+        with _patched(pipeline, "_imagery_scene", keep_scene):
+            seq, res, k1n, _, _ = _imagery_run(
+                f"imagery fixture {case} ({tag})", dev, smi,
+                lambda: pipeline.simulate_imagery_from_draws(
+                    draws, rasters=rasters, detector=detector, device=dev,
+                    **kw))
         out["k1"][f"fixture_{case}"] = k1n
         c = seq.crops
+        scenes[case] = (scenes[case], c.crop_hw)
         win = fx[f"win_{case}"]
         want = fx[f"scores_{case}"]
         on = want > (0.3 if case == "a" else 0.0)
@@ -1625,15 +1759,11 @@ def _phase22(dev, smi) -> dict:
         _check(np.array_equal(res.times, fx[f"times_{case}"])
                and d_e <= 1e-4 and d_j <= 1e-6, (case, "stream", d_e, d_j))
 
-    # the detection stage alone under the profiler: case b's crops (the
-    # CNN) and case a's (the NCC)
+    # the detection stage alone under the profiler, on the crops of the
+    # replays above (whose detection ran the same call): case a's (the
+    # NCC) and case b's (the CNN)
     for case, detector in (("a", None), ("b", det)):
-        draws, rasters, kw = _imagery_case(fx, case)
-        scene = pipeline._imagery_scene(
-            draws, kw["duration_s"], kw["frame_stride"],
-            kw.get("num_landmarks", 60), 0.01, 1.5, 12.0, rasters, dev, {})
-        Hc, Wc = pipeline.detect_crops(detector, scene.crops,
-                                       scene.templates)[3]
+        scene, (Hc, Wc) = scenes[case]
         wall, per = _device_profile(lambda: pipeline.detect_crops(
             detector, scene.crops, scene.templates))
         busy = sum(t for _, t in per.values()) * 1e-6
@@ -1716,54 +1846,71 @@ def _separated(rng, K, H, W, min_d=18.0):
     return np.array(pts)
 
 
-def _detector_gates(det, templates, K: int, sets: int = 10) -> dict:
-    """The statistics of the JAX package's two detector gates
-    (tests/test_learned_detector_full.py) over `sets` scene sets, each
-    of 7 scenes of 192 x 192 at amplitude 1.5 and noise 0.15 rendered on
-    the templates' device (landmarks >= 18 px apart from
-    np.random.default_rng(set), fresh for each gate as in JAX's tests):
-    "within", the classes localized within 4 px on the grid alone over
-    3 scenes a set; "a", whether a set passes that gate (>= K - 1 a
-    scene, >= 2 scenes perfect); "means", the classes whose mean pixel
-    error at conf > 0.5 over 4 scenes (matched filter) is under 10 px;
-    "b", whether a set has all K under it."""
+def _scene_sets(templates, K: int, sets: int = 10) -> list:
+    """The scenes of the JAX package's two detector gates
+    (tests/test_learned_detector_full.py), `sets` sets of them, rendered
+    once on the templates' device for every detector scored on them: for
+    each set and gate ("a", then "b"), 3 (a) or 4 (b) scenes of 192 x 192
+    at amplitude 1.5 and noise 0.15, landmarks >= 18 px apart from
+    np.random.default_rng(set), fresh for each gate as in JAX's tests.
+    [(set, gate, [(positions, image as numpy)])]."""
     import numpy as np
     import torch
-    from vinsat_tpu_torch.evalx import px_err
     from vinsat_tpu_torch.sim import imagery
 
     H = W = 192
-    out = {"within": 0, "a": [], "means": 0, "b": []}
+    out = []
     for s in range(sets):
         for gate in ("a", "b"):
             rng = np.random.default_rng(s)
-            d = det._replace(templates=None if gate == "a" else templates)
-            recs, goods = [], []
+            scenes = []
             for trial in range(3 if gate == "a" else 4):
                 pos = _separated(rng, K, H, W)
                 img = imagery.render_region_image(
                     torch.Generator().manual_seed(
                         1000 * s + (0 if gate == "a" else 100) + trial),
                     H, W, templates, pos, noise_sigma=0.15, amplitude=1.5)
-                rows = d.predict(img.cpu().numpy(), 0.5, np.arange(K))
-                goods.append(sum(
-                    1 for c, xc, yc, _ in rows
-                    if np.hypot(xc - pos[int(c), 0], yc - pos[int(c), 1])
-                    < 4.0))
-                recs.append(px_err.error_records(
-                    np.arange(K), pos / [W, H], rows[:, 0].astype(int),
-                    rows[:, 1:3] / [W, H], rows[:, 3], W, H))
-            if gate == "a":
-                out["within"] += sum(goods)
-                out["a"].append(all(g >= K - 1 for g in goods)
-                                and sum(g == K for g in goods) >= 2)
-            else:
-                err = np.concatenate(recs)
-                ok = [np.isfinite(m) and m < 10.0 for m in (
-                    px_err.class_stats(err, c, conf_threshold=0.5)[1]
-                    for c in range(K))]
-                out["means"] += sum(ok)
-                out["b"].append(all(ok))
+                scenes.append((pos, img.cpu().numpy()))
+            out.append((s, gate, scenes))
+    return out
+
+
+def _detector_gates(det, templates, K: int, scene_sets) -> dict:
+    """The statistics of the JAX package's two detector gates over
+    `scene_sets` (`_scene_sets`): "within", the classes localized within
+    4 px on the grid alone over a set's 3 scenes; "a", whether a set
+    passes that gate (>= K - 1 a scene, >= 2 scenes perfect); "means",
+    the classes whose mean pixel error at conf > 0.5 over 4 scenes
+    (matched filter) is under 10 px; "b", whether a set has all K under
+    it."""
+    import numpy as np
+    from vinsat_tpu_torch.evalx import px_err
+
+    H = W = 192
+    out = {"within": 0, "a": [], "means": 0, "b": []}
+    for _, gate, scenes in scene_sets:
+        d = det._replace(templates=None if gate == "a" else templates)
+        recs, goods = [], []
+        for pos, img in scenes:
+            rows = d.predict(img, 0.5, np.arange(K))
+            goods.append(sum(
+                1 for c, xc, yc, _ in rows
+                if np.hypot(xc - pos[int(c), 0], yc - pos[int(c), 1])
+                < 4.0))
+            recs.append(px_err.error_records(
+                np.arange(K), pos / [W, H], rows[:, 0].astype(int),
+                rows[:, 1:3] / [W, H], rows[:, 3], W, H))
+        if gate == "a":
+            out["within"] += sum(goods)
+            out["a"].append(all(g >= K - 1 for g in goods)
+                            and sum(g == K for g in goods) >= 2)
+        else:
+            err = np.concatenate(recs)
+            ok = [np.isfinite(m) and m < 10.0 for m in (
+                px_err.class_stats(err, c, conf_threshold=0.5)[1]
+                for c in range(K))]
+            out["means"] += sum(ok)
+            out["b"].append(all(ok))
     return out
 
 
@@ -1894,10 +2041,11 @@ def _phase23(dev, smi) -> dict:
           f"{sum(a or b for a, b in seen)}  [{smi}]")
     _check(np.isfinite(loss) and seen and not any(a or b for a, b in seen),
            ("training", loss, seen[:4]))
-    stats = {"port": _detector_gates(det, templates, K),
+    scene_sets = _scene_sets(templates, K)
+    stats = {"port": _detector_gates(det, templates, K, scene_sets),
              "jax": _detector_gates(ld.load_detector(DETECTOR_FIXTURE,
                                                      device=dev),
-                                    templates, K)}
+                                    templates, K, scene_sets)}
     for who, st in stats.items():
         print(f"detector gates ({who}-trained, {len(st['a'])} scene sets "
               f"rendered on the card): classes within 4 px (grid only) "
@@ -2318,7 +2466,20 @@ def _jax_f64_variant(N: int) -> str:
     return "chunked"
 
 
-def _phase14_orbits(dev, smi, seeds) -> dict:
+def _claimed(claim_dir, seed) -> bool:
+    """Whether this process takes orbit `seed`: the first process to
+    create claim_dir/<seed> does (every process without a claim_dir)."""
+    if claim_dir is None:
+        return True
+    try:
+        os.close(os.open(os.path.join(claim_dir, str(seed)),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        return False
+    return True
+
+
+def _phase14_orbits(dev, smi, seeds, claim_dir=None, sims=None) -> dict:
     """Orbits `seeds` of bench.py's synthetic full evaluation from JAX's
     draws (tests/data/torch_full_eval.npz): each simulate_from_draws
     (10800 s, mode b) on the card, its rows held to JAX's (count and
@@ -2328,9 +2489,13 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
     windows, time to 5 km and final within 0.01 km; or, where a JAX error
     lies within MARGIN_KM of 1, 2 or 5 km, the stream under JAX's f64
     solve rule with JAX's times and every error within 1e-5 km.  Every
-    orbit's three bounds within 1e-6 relative and n_obs equal.  Returns
-    the streamed orbits' errors and times, each orbit's rule and the
-    launches, as JSON values."""
+    orbit's three bounds within 1e-6 relative and n_obs equal.  With a
+    claim_dir, only the orbits this process claims there (`_claimed`).
+    sims: {seed: (sequence, wall s, K3 launches)} of orbits already
+    simulated from the same draws (phase 7's mode-b orbit is orbit 1),
+    streamed without simulating them again.  Returns the streamed orbits'
+    errors and times, each orbit's rule, the launches and the orbits
+    taken, as JSON values."""
     import numpy as np
     import torch
     from vinsat_tpu_torch import pipeline
@@ -2343,6 +2508,8 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
     solve = tridiag_pcr.block_tridiag_solve_pcr
     k3 = visible_count.visible_count
     solve.launches = k3.launches = 0
+    checks0, taken, k3_shared = GATES["checks"], [], 0
+    sims = sims or {}
     seen = {"bounds": [], "windows": []}
     variants = collections.Counter()
 
@@ -2362,11 +2529,20 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
 
     errors, times, rules, k1_by_seed = {}, {}, {}, {}
     for s in seeds:
+        if not _claimed(claim_dir, s):
+            continue
+        taken.append(s)
         g = lambda k: fx[f"{k}_{s}"]  # noqa: E731
-        t0 = time.time()
-        seq = pipeline.simulate_from_draws(_fixture_draws(fx, str(s)),
-                                           int(fx["duration_s"]), device=dev)
-        t_sim = time.time() - t0
+        if s in sims:
+            seq, t_sim, k3_s = sims[s]
+            k3_shared += k3_s
+            sim_note = " (phase 7's simulation of the same draws)"
+        else:
+            t0 = time.time()
+            seq = pipeline.simulate_from_draws(_fixture_draws(fx, str(s)),
+                                               int(fx["duration_s"]),
+                                               device=dev)
+            t_sim, sim_note = time.time() - t0, ""
         _check(len(seq.det_rows) == int(g("n_rows"))
                and np.array_equal(seq.det_rows[:, 0], g("frames"))
                and np.isfinite(seq.det_rows).all(),
@@ -2395,7 +2571,7 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
             # bench.py's loop skips it: no rows, or none the stream keeps
             _check(not has, ("eval orbit without a stream", s))
             print(f"eval orbit {s}: {len(seq.det_rows)} rows, no stream "
-                  f"(JAX: none); sim {t_sim:.2f} s")
+                  f"(JAX: none); sim {t_sim:.2f} s{sim_note}")
             del seq, res
             continue
         _check(has, ("eval orbit streamed where JAX's was not", s))
@@ -2422,7 +2598,8 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
               f"{float(g('errors')[at]) if same_t else np.nan:.4f} km), "
               f"margins "
               f"{np.round(g('margin_km'), 4).tolist()} km, CRLB max rel "
-              f"{d_cb:.3e}; sim {t_sim:.2f} s, stream {t_stream:.2f} s "
+              f"{d_cb:.3e}; sim {t_sim:.2f} s{sim_note}, stream "
+              f"{t_stream:.2f} s "
               f"(sync_rerun {res.sync_rerun}, graphs captured "
               f"{graphs.stats['captures'] - cap0}, replayed "
               f"{graphs.stats['replays'] - rep0}), eval_row {t_row:.2f} s, "
@@ -2456,7 +2633,9 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
     _check(graphs.kept() <= graphs.MAX_PROGRAMS,
            ("window programs kept", graphs.kept()))
     return {"errors": errors, "times": times, "rules": rules,
-            "k1": solve.launches, "k3": k3.launches, "k1_by_seed": k1_by_seed,
+            "k1": solve.launches, "k3": k3.launches + k3_shared,
+            "k1_by_seed": k1_by_seed, "seeds": taken,
+            "checks": GATES["checks"] - checks0,
             "reserved_mib": torch.cuda.memory_reserved() / 2**20}
 
 
@@ -2465,21 +2644,23 @@ def _phase14_orbits(dev, smi, seeds) -> dict:
 EVAL_PROCESSES = 4
 
 
-def _phase14_launch() -> tuple:
-    """Phase 14's full evaluation started: its orbits split over
+def _phase14_launch(seeds) -> tuple:
+    """Phase 14's full evaluation started: orbits `seeds` taken by
     EVAL_PROCESSES processes (`_phase14_orbits` in each, on the first
-    card), each run from a thread, so that run_batch_eval runs beside
-    them in this process.  Returns (pool, futures of (group, stdout))."""
-    import numpy as np
+    card), each taking the next orbit that no process has claimed in the
+    returned claim directory (this one too, once its own run_batch_eval
+    is done), each run from a thread.  Returns (pool, futures of (process,
+    stdout), the claim directory)."""
+    import tempfile
 
-    seeds = np.load(FULL_EVAL_FIXTURE)["seeds"].tolist()
+    claims = tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR"))
 
-    def run(group):
+    def run(i):
         code = ("import json, sys, torch\n"
                 f"sys.path.insert(0, {ROOT!r})\n"
                 "import chip_smoke as cs\n"
                 f"out = cs._phase14_orbits(torch.device('cuda'), cs._smi(), "
-                f"{group!r})\n"
+                f"{seeds!r}, claim_dir={claims.name!r})\n"
                 "print('ORBITS ' + json.dumps(out))\n")
         proc = subprocess.run(
             [sys.executable, "-c", code], cwd=ROOT,
@@ -2487,42 +2668,54 @@ def _phase14_launch() -> tuple:
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr[-3000:])
-        _check(proc.returncode == 0, ("full eval orbits", group,
+        _check(proc.returncode == 0, ("full eval orbits", i,
                                       proc.returncode))
-        return group, proc.stdout
+        return i, proc.stdout
 
     pool = ThreadPoolExecutor(EVAL_PROCESSES)
-    return pool, [pool.submit(run, seeds[i::EVAL_PROCESSES])
-                  for i in range(EVAL_PROCESSES)]
+    return pool, [pool.submit(run, i) for i in range(EVAL_PROCESSES)], claims
 
 
-def _phase14_full_eval(smi, launched) -> dict:
+def _phase14_full_eval(smi, launched, here) -> dict:
     """14 (first part). bench.py's synthetic full evaluation from JAX's
     draws: its 16 orbits' lines and gates from the processes of
-    `_phase14_launch` (`_phase14_orbits`), then ate.summarize over the
-    streamed orbits: the summary's fractions and median times equal to
-    JAX's, its median final error within 0.01 km; K3 once an orbit, K1
-    launched.  Returns the launches."""
+    `_phase14_launch` (`_phase14_orbits`) and from `here` (this process's
+    `_phase14_orbits` result), then ate.summarize over the streamed
+    orbits: the summary's fractions and median times equal to JAX's, its
+    median final error within 0.01 km; every orbit taken once, K3 once an
+    orbit, K1 launched.  Returns the launches."""
     import numpy as np
     from vinsat_tpu_torch.evalx import ate
 
     fx = np.load(FULL_EVAL_FIXTURE)
     t_wait = time.time()
-    pool, futures = launched
-    with pool:
+    pool, futures, claims = launched
+    with pool, claims:
         done = [f.result() for f in futures]
     out = {"errors": {}, "times": {}, "rules": {}, "k1_by_seed": {}}
     k1 = k3 = 0
-    for group, text in done:
-        lines = text.splitlines()
-        print("\n".join(ln for ln in lines if not ln.startswith("ORBITS ")))
-        r = json.loads(next(ln for ln in lines
-                            if ln.startswith("ORBITS "))[len("ORBITS "):])
+    taken = []
+    for i, text in done + [(None, None)]:
+        if text is None:
+            r = here
+        else:
+            lines = text.splitlines()
+            print("\n".join(ln for ln in lines
+                            if not ln.startswith("ORBITS ")))
+            r = json.loads(next(ln for ln in lines
+                                if ln.startswith("ORBITS "))[len("ORBITS "):])
+            GATES["reported"] += r["checks"]
+            GATES["processes"] += 1
         for k in out:
             out[k].update({int(s): v for s, v in r[k].items()})
         k1, k3 = k1 + r["k1"], k3 + r["k3"]
-        print(f"full eval orbits {group}: one process, device memory "
-              f"reserved {r['reserved_mib']:.0f} MiB at its end")
+        taken += r["seeds"]
+        print(f"full eval orbits {r['seeds']}: "
+              + ("this process" if text is None else f"process {i}")
+              + f", device memory reserved {r['reserved_mib']:.0f} MiB at "
+              "its end")
+    _check(sorted(taken) == sorted(fx["seeds"].tolist()),
+           ("every orbit taken once", sorted(taken)))
     streamed = sorted(out["errors"])
     summary = ate.summarize([np.asarray(out["errors"][s]) for s in streamed],
                             [np.asarray(out["times"][s]) for s in streamed])
@@ -2546,6 +2739,62 @@ def _phase14_full_eval(smi, launched) -> dict:
     _check(k3 == len(fx["seeds"]) and k1 > 0, ("full eval launches", k3, k1))
     return {"k1": k1, "k3": k3, "k1_seed1": out["k1_by_seed"].get(1),
             "rules": rules}
+
+
+def _phase14(dev, smi, sim_fx, kw_b, sim_b) -> dict:
+    """14. bench.py's synthetic full evaluation from JAX's draws in
+    processes of its own (`_phase14_launch`), but for its orbit 1, the
+    mode-b orbit of phase 7 (the same draws and duration, checked), whose
+    simulation `sim_b` = (sequence, wall s, K3 launches) is streamed here;
+    beside them here run_batch_eval([0, 1]) from the port's generator,
+    then orbit 1 and the orbits the processes have not yet claimed.
+    Returns `_phase14_full_eval`'s launches and run_batch_eval's K1 and
+    K3 launches ("batch_eval")."""
+    import numpy as np
+    from vinsat_tpu_torch import pipeline
+    from vinsat_tpu_torch.estimation import window
+    from vinsat_tpu_torch.kernels import tridiag_pcr, visible_count
+
+    solve = tridiag_pcr.block_tridiag_solve_pcr
+    k3 = visible_count.visible_count
+    cfg = window.StreamingConfig(dtype="float64")
+    eval_fx = np.load(FULL_EVAL_FIXTURE)
+    _check(all(np.array_equal(sim_fx[f"{k}_b"], eval_fx[f"{k}_1"])
+               for k in ("oe", "q0", "w0", "db_seed", "score_frame",
+                         "score_landmark", "score", "noise", "conf"))
+           and kw_b == {"duration_s": int(eval_fx["duration_s"])},
+           "phase 7's draws are the full evaluation's orbit 1")
+    seeds = [s for s in eval_fx["seeds"].tolist() if s != 1]
+    launched = _phase14_launch(seeds)
+    # run_batch_eval's streams recorded as it makes them, for the rows
+    solve.launches = k3.launches = 0
+    streamed = []
+
+    def record_stream(run, seq, seed=0, **kw):
+        res = run(seq, seed=seed, **kw)
+        streamed.append((seq, res, seed))
+        print(f"  run_batch_eval seed {seed} streamed" + _cache_state())
+        return res
+
+    t0 = time.time()
+    with _patched(pipeline, "run_streaming", record_stream):
+        summary = pipeline.run_batch_eval([0, 1], EVAL_DURATION_S, cfg=cfg,
+                                          device=dev)
+    wall_ev = time.time() - t0
+    k1_ev, k3_ev = solve.launches, k3.launches
+    rows = [pipeline.eval_row(sq, r, s, device=dev) for sq, r, s in streamed]
+    print(f"run_batch_eval([0, 1], {EVAL_DURATION_S}): {wall_ev:.2f} s, K1 "
+          f"launches {k1_ev}, K3 launches {k3_ev}; summary "
+          + json.dumps(summary) + f"  [{smi}]")
+    for row in rows:
+        print("  eval row " + json.dumps(row))
+    _check(np.isfinite(summary["median_final_error_km"]),
+           ("eval summary", summary))
+    _check(k3_ev == 2 and k1_ev > 0, ("eval launches", k3_ev, k1_ev))
+    here = _phase14_orbits(dev, smi, [1] + seeds, claim_dir=launched[2].name,
+                           sims={1: sim_b})
+    return dict(_phase14_full_eval(smi, launched, here),
+                batch_eval=(k1_ev, k3_ev))
 
 
 def _cpu_model() -> str:
@@ -2820,18 +3069,26 @@ def main() -> int:
     seed = int(fx["seed"])
     cfg = window.StreamingConfig(dtype="float64")
 
-    def n_windows(det, orbit, s):
-        prep = window.prepare_stream(det, orbit, s, cfg, device=dev)
-        return prep, len(ingest.split_windows(prep.graph.ii, prep.knot_t))
+    # a stream's prepared inputs, kept as the stream makes them (for its
+    # window count, and phase 5's refinement)
+    preps = []
 
-    det, orbit = pipeline.stream_inputs(fx)
-    prep, nw = n_windows(det, orbit, seed)
+    def keep_prep(prepare, *a, **k):
+        preps.append(prepare(*a, **k))
+        return preps[-1]
+
+    def n_windows(prep):
+        return len(ingest.split_windows(prep.graph.ii, prep.knot_t))
+
     solve.launches = k3.launches = 0
     k1_shapes = collections.Counter()
     t0 = time.time()
-    with _k1_recording(lambda B, N, *_: k1_shapes.update([(B, N)])):
+    with _k1_recording(lambda B, N, *_: k1_shapes.update([(B, N)])), \
+            _patched(window, "prepare_stream", keep_prep):
         res = pipeline.run_streaming(fx, seed=seed, cfg=cfg, device=dev)
     wall = time.time() - t0
+    prep = preps[-1]
+    nw = n_windows(prep)
     k1_launches = solve.launches
     t5 = ate.time_to_threshold(res.errors, res.times, 5.0)
     final = float(res.errors[-1])
@@ -2897,8 +3154,9 @@ def main() -> int:
                           sim_fx["frame_visible_a"]), "gate a")
     d_pos = np.abs(seq_a.orbit_pos_eci_km[::100] - sim_fx["pos_eci_a"]).max()
     print(f"sim a: max |d pos_eci| vs JAX (every 100 s) {d_pos:.3e} km")
-    _, nw_a = n_windows(*pipeline.stream_inputs(seq_a), seed)
-    res_a = pipeline.run_streaming(seq_a, seed=seed, cfg=cfg, device=dev)
+    with _patched(window, "prepare_stream", keep_prep):
+        res_a = pipeline.run_streaming(seq_a, seed=seed, cfg=cfg, device=dev)
+    nw_a = n_windows(preps[-1])
     t5_a = ate.time_to_threshold(res_a.errors, res_a.times, 5.0)
     final_a = float(res_a.errors[-1])
     print(f"sim a streamed: {nw_a} windows, time_to_5km_s {t5_a}, "
@@ -2916,6 +3174,7 @@ def main() -> int:
     seq_b = pipeline.simulate_from_draws(_fixture_draws(sim_fx, "b"),
                                          device=dev, **kw_b)
     wall_b = time.time() - t0
+    k3_b = k3.launches
     n_frames = len(seq_b.dets.frame_visible)
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"sim b: {n_frames} frames, {seq_b.db.num_landmarks} landmarks, "
@@ -3027,10 +3286,11 @@ def main() -> int:
     t0 = time.time()
     seq = pipeline.simulate_sequence(seed, device=dev, **kw_a)
     wall_sim = time.time() - t0
-    res9 = pipeline.run_streaming(seq, seed=seed, cfg=cfg, device=dev)
+    with _patched(window, "prepare_stream", keep_prep):
+        res9 = pipeline.run_streaming(seq, seed=seed, cfg=cfg, device=dev)
     wall_9 = time.time() - t0
     k3_launches, k1_main = k3.launches, solve.launches
-    _, nw9 = n_windows(*pipeline.stream_inputs(seq), seed)
+    nw9 = n_windows(preps[-1])
     t5_9 = ate.time_to_threshold(res9.errors, res9.times, 5.0)
     print(f"own arc (seed {seed}, mode a): {len(seq.det_rows)} rows, {nw9} "
           f"windows, {len(res9.errors)} errors, time_to_5km_s {t5_9}, "
@@ -3377,36 +3637,10 @@ def main() -> int:
     phase_done(13)
 
     # 14. the evaluation: bench.py's synthetic full evaluation from JAX's
-    # draws (its orbit 1 is the mode-b orbit of 7) in processes of its
-    # own, and beside it here the port's own two orbits
-    launched14 = _phase14_launch()
-    # run_batch_eval's streams recorded as it makes them, for the rows
-    solve.launches = k3.launches = 0
-    streamed = []
-
-    def record_stream(run, seq, seed=0, **kw):
-        res = run(seq, seed=seed, **kw)
-        streamed.append((seq, res, seed))
-        print(f"  run_batch_eval seed {seed} streamed" + _cache_state())
-        return res
-
-    t0 = time.time()
-    with _patched(pipeline, "run_streaming", record_stream):
-        summary14 = pipeline.run_batch_eval([0, 1], EVAL_DURATION_S,
-                                            cfg=cfg, device=dev)
-    wall_ev = time.time() - t0
-    k1_ev, k3_ev = solve.launches, k3.launches
-    rows14 = [pipeline.eval_row(sq, r, s, device=dev)
-              for sq, r, s in streamed]
-    print(f"run_batch_eval([0, 1], {EVAL_DURATION_S}): {wall_ev:.2f} s, K1 "
-          f"launches {k1_ev}, K3 launches {k3_ev}; summary "
-          + json.dumps(summary14) + f"  [{smi}]")
-    for row in rows14:
-        print("  eval row " + json.dumps(row))
-    _check(np.isfinite(summary14["median_final_error_km"]),
-           ("eval summary", summary14))
-    _check(k3_ev == 2 and k1_ev > 0, ("eval launches", k3_ev, k1_ev))
-    p14 = _phase14_full_eval(smi, launched14)
+    # draws, its orbit 1 from phase 7's simulation; the port's own two
+    # orbits beside it
+    p14 = _phase14(dev, smi, sim_fx, kw_b, (seq_b, wall_b, k3_b))
+    k1_ev, k3_ev = p14["batch_eval"]
     phase_done(14)
 
     # 15. the f32 stream: the fixture's rows in f32 on the card, its f64
@@ -3551,9 +3785,10 @@ def main() -> int:
     # fixed 20-iteration budget: each window is solved three times)
     seq3 = {"det_rows": md["det_rows_3"],
             "orbit_pos_eci_km": md["orbit_pos_eci_km_3"]}
-    res_esc, wall_esc = stream32(
-        seq3, seed, cfg32._replace(recover_rms_px=1e-3, max_iters=0))
-    _, nw_esc = n_windows(*pipeline.stream_inputs(seq3), seed)
+    with _patched(window, "prepare_stream", keep_prep):
+        res_esc, wall_esc = stream32(
+            seq3, seed, cfg32._replace(recover_rms_px=1e-3, max_iters=0))
+    nw_esc = n_windows(preps[-1])
     print(f"f32 forced escalation (config 3's sequence, recover_rms_px "
           f"1e-3, max_iters 0; the default fast stream, run again in sync "
           f"mode: sync_rerun {res_esc.sync_rerun}): {nw_esc} windows, "
@@ -3786,6 +4021,9 @@ def main() -> int:
            ("window programs kept", graphs.kept()))
 
     print(f"chip_smoke: {time.time() - T_START:.1f} s in all")
+    print(f"gates: {GATES['checks'] + GATES['reported']} _check calls ran "
+          f"({GATES['checks']} in this process, {GATES['reported']} in the "
+          f"{GATES['processes']} subprocesses that report theirs)")
     k3_ms, k3_plain_ms, k3_bound, k3_dev = k3_times[("regions", "float64")]
     print(json.dumps({"kernels": [
         {"name": "tridiag_pcr", "route": "cuda", "source": K1_SOURCE,
@@ -3816,7 +4054,9 @@ def main() -> int:
                                   p22["k1"]["imagery_learned_stream"],
                               "cli_stream": p23["k1"]["cli_stream"],
                               "cli_constellation":
-                                  p23["k1"]["cli_constellation"]},
+                                  p23["k1"]["cli_constellation"],
+                              "prior_coeffs_reg_iteration":
+                                  p18["prior_coeffs"]["k1"]},
          "constellation_shape": dict(
              k1_shape4, max_rel_err=k1_err4,
              max_rel_err_run_first=k1_run4["first"][0],
@@ -3874,7 +4114,9 @@ def main() -> int:
                               "ranks_ba_step": p20["k2"]["ba-step"],
                               "ranks_stream": p20["k2"]["stream"],
                               "ranks_stream_sharded":
-                                  p20["stream_sharded"]["k2"]},
+                                  p20["stream_sharded"]["k2"],
+                              "prior_coeffs_sharded_solve":
+                                  p18["prior_coeffs"]["k2"]},
          "sharded_stream_shape": p18["shape"],
          "sharded_stream_f32_shape": p18["shape_f32"]}]}))
     print(smi)

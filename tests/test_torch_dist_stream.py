@@ -6,8 +6,10 @@ pieces, and configs 2, 4 and 5(a) in f32, on the CPU.
   * `make_sharded_window_solver` against JAX's in both budgets (the last
     iterate of a fixed count, the best of a run to max_iters), with and
     without a prior, on one shard and on eight (JAX: 8 virtual CPU
-    devices; each budget, prior and layout twice among four cases):
-    states 1e-8 relative, λ and the residual 1e-8;
+    devices; each budget, prior and layout twice among four cases), and
+    with a prior at the prior coefficients (0.5, 2.0) on four shards
+    (tests/data/torch_prior_coeffs.npz): states 1e-8 relative, λ and the
+    residual 1e-8;
   * `_build_window_problem` against JAX's: the same slots;
   * `stream_orbit_sharded` on the committed fixture's config-5(b) rows
     (tests/data/torch_dist_stream_seed1.npz) in f64 forced onto the arc
@@ -51,6 +53,7 @@ from vinsat_tpu_torch.estimation import ba, window
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_dist_stream_seed1.npz")
+COEFFS_FIXTURE = os.path.join(ROOT, "tests", "data", "torch_prior_coeffs.npz")
 PARAMS = dict(num_hops=3, max_substep=100.0)
 N_KNOTS, D = 16, 4
 
@@ -94,22 +97,35 @@ def _port_inputs(fields, prior, P):
     return prob, pri
 
 
-def _jax_solve(P, num_iters, max_iters, init_iters, with_prior):
+def _jax_solve(P, num_iters, max_iters, init_iters, with_prior,
+               coeffs=(1.0, 1.0)):
     """JAX's sharded window solver on the case, committed (tests/data/
-    make_torch_jax_runs_fixture.py: a compile a configuration)."""
+    make_torch_jax_runs_fixture.py: a compile a configuration; at other
+    prior coefficients tests/data/make_torch_prior_coeffs_fixture.py)."""
+    if coeffs != (1.0, 1.0):
+        fx = np.load(COEFFS_FIXTURE)
+        assert (tuple(fx["coeffs"]) == coeffs and with_prior
+                and tuple(fx["solve_args"]) == (P, num_iters, max_iters,
+                                                init_iters))
+        fields, prior = _case()
+        for k, v in fields.items():
+            np.testing.assert_array_equal(fx[f"solve_prob_{k}"][0], v)
+        return tuple(fx[f"solve_out_{i}"] for i in range(3))
     key = "_".join(str(int(a)) for a in (P, num_iters, max_iters,
                                          init_iters, with_prior))
     j = vars(jax_runs(f"dstream_solve_{key}"))
     return tuple(j[str(i)] for i in range(3))
 
 
-def _port_solve(P, num_iters, max_iters, init_iters, with_prior):
+def _port_solve(P, num_iters, max_iters, init_iters, with_prior,
+                coeffs=(1.0, 1.0)):
     fields, prior = _case()
     prob, pri = _port_inputs(fields, prior, P)
     solve = sharded_ba.make_sharded_window_solver(
         mesh.make_mesh(1, P, device="cpu"),
         ba.SolverParams(max_iters=max_iters, **PARAMS),
-        num_iters=num_iters, init_iters=init_iters, with_prior=with_prior)
+        num_iters=num_iters, init_iters=init_iters, with_prior=with_prior,
+        quat_coeff_prior=coeffs[0], vel_coeff_prior=coeffs[1])
     return solve(torch.full((1,), 1e-4, dtype=torch.float64), prob,
                  pri if with_prior else None)
 
@@ -126,19 +142,26 @@ def test_sharded_prior_step_matches_jax():
     assert rel_err(no_prior, st) > 1e-6
 
 
-@pytest.mark.parametrize("budget,with_prior,P", [
-    ("fixed", False, 8), ("fixed", True, 1), ("best", True, 8),
-    ("best", False, 1)])
-def test_window_solver_matches_jax(budget, with_prior, P):
+@pytest.mark.parametrize("budget,with_prior,P,coeffs", [
+    pytest.param("fixed", False, 8, (1.0, 1.0), id="fixed-False-8"),
+    pytest.param("fixed", True, 1, (1.0, 1.0), id="fixed-True-1"),
+    pytest.param("best", True, 8, (1.0, 1.0), id="best-True-8"),
+    pytest.param("best", False, 1, (1.0, 1.0), id="best-False-1"),
+    pytest.param("fixed", True, 4, (0.5, 2.0), id="fixed-True-4-q0.5-v2")])
+def test_window_solver_matches_jax(budget, with_prior, P, coeffs):
+    """coeffs: (quat_coeff_prior, vel_coeff_prior)."""
     # fixed: 3 iterations, the last returned; best: 2 + 2 more, the best
     # from the init phase's end (iteration 1) on
     args = (3, 0, 1) if budget == "fixed" else (2, 4, 1)
-    want = _jax_solve(P, *args, with_prior)
-    st, lam, res = _port_solve(P, *args, with_prior)
+    want = _jax_solve(P, *args, with_prior, coeffs)
+    st, lam, res = _port_solve(P, *args, with_prior, coeffs)
     assert st.shape == (1, P, N_KNOTS // P, 10)
     assert rel_err(st.reshape(1, N_KNOTS, 10), want[0]) < 1e-8
     assert rel_err(lam, want[1]) < 1e-8
     assert rel_err(res, want[2]) < 1e-8
+    if coeffs != (1.0, 1.0):
+        # the coefficients reach the prior factor
+        assert rel_err(_port_solve(P, *args, with_prior)[0], st) > 1e-6
 
 
 def test_build_window_problem_matches_jax():

@@ -4,7 +4,8 @@ the same inputs, made from a seed with numpy along a JAX-simulated orbit.
 Bound: relative 1e-10 for `span_rotations`, `prior_factor`,
 `terminal_marginal_info`, `inflate_info`, `propagate_prior` and one
 `ba_reg_iteration` (states, last_hessian, mean_residual; λ equal) with the
-sequential and the batched λ search.  `propagate_prior`'s H_state, the
+sequential and the batched λ search, and at the prior coefficients
+(0.5, 2.0).  `propagate_prior`'s H_state, the
 inverse of a covariance of condition up to ~2e13, is held knot by knot to
 the unit roundoff times its condition number (the measured error is
 ~1e-3 of that).  `solve_window_reg` (10 regularized iterations, JAX's
@@ -35,11 +36,12 @@ def _spd(rng, n, k, scale):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(seed=0, n_knots=10, n_pad=16, m_pad=128):
-    """A padded window (6 obs a knot), perturbed states, and a prior on
-    knots 4..9: propagated states near GT, random SPD information."""
+def _case(seed=0, n_knots=10, n_pad=16, m_pad=128, gap=150.0):
+    """A padded window (6 obs a knot, knots `gap` s apart), perturbed
+    states, and a prior on knots 4..n_knots-1: propagated states near GT,
+    random SPD information."""
     rng = np.random.default_rng(seed)
-    gt, f = orbit_problem(rng, n_knots=n_knots, obs_per_knot=6, gap=150.0)
+    gt, f = orbit_problem(rng, n_knots=n_knots, obs_per_knot=6, gap=gap)
     st = perturb(rng, gt, pos_km=5.0, rot_rad=0.01)
     st0, prob = jwindow._pad_problem(
         st, f["gaps"], f["cum_rot"], f["landmarks_xyz"], f["landmarks_uv"],
@@ -128,19 +130,31 @@ def test_propagate_prior_matches_jax():
         assert rel_err(g, w) < max(TOL, 1.1e-16 * np.linalg.cond(w))
 
 
-@pytest.mark.parametrize("batched", [0, 9])
-def test_ba_reg_iteration_matches_jax(batched):
+@pytest.mark.parametrize("batched,coeffs", [
+    pytest.param(0, (1.0, 1.0), id="0"), pytest.param(9, (1.0, 1.0), id="9"),
+    pytest.param(0, (0.5, 2.0), id="0-q0.5-v2")])
+def test_ba_reg_iteration_matches_jax(batched, coeffs):
+    """coeffs: (quat_coeff_prior, vel_coeff_prior)."""
     st0, fields, pri = _case()
     step = jax.jit(jba.ba_reg_iteration, static_argnames=("params",))
     want = step(jnp.asarray(12), jnp.asarray(st0), jax_problem(fields),
                 _jprior(pri), 1e-4,
-                params=jba.SolverParams(batched_lambda=batched, num_hops=4))
-    got = ba.ba_reg_iteration(
-        12, T(st0), ba.problem_from_numpy(fields, "cpu"), _prior(pri), 1e-4,
-        params=ba.SolverParams(batched_lambda=batched, num_hops=4))
+                params=jba.SolverParams(batched_lambda=batched, num_hops=4),
+                quat_coeff_prior=coeffs[0], vel_coeff_prior=coeffs[1])
+
+    def port(q, v):
+        return ba.ba_reg_iteration(
+            12, T(st0), ba.problem_from_numpy(fields, "cpu"), _prior(pri),
+            1e-4, params=ba.SolverParams(batched_lambda=batched, num_hops=4),
+            quat_coeff_prior=q, vel_coeff_prior=v)
+
+    got = port(*coeffs)
     assert float(got.lamda_init) == float(want.lamda_init)
     for name in ("states", "last_hessian", "mean_residual"):
         assert rel_err(getattr(got, name), getattr(want, name)) < TOL, name
+    if coeffs != (1.0, 1.0):
+        # the coefficients reach the prior factor
+        assert rel_err(port(1.0, 1.0).states, got.states) > 1e-6
 
 
 def test_solve_window_reg_matches_jax():

@@ -174,14 +174,17 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
                          params: SolverParams, initialize: float = 0.0,
                          use_pallas_assembly: bool = False,
                          prior: Optional[ShardedPrior] = None,
-                         mesh: Optional[mesh_mod.Mesh] = None):
+                         mesh: Optional[mesh_mod.Mesh] = None,
+                         quat_coeff_prior: float = 1.0,
+                         vel_coeff_prior: float = 1.0):
     """One LM iteration of every orbit of `prob` (all B at once, each over
     its P arc shards: all of them on one device, or this rank's block of
     `mesh`'s on ranks).  lamda (B,).  `use_pallas_assembly` keeps the JAX
     flag's meaning: kernel K2 assembles in f32 and casts back; otherwise K2
     assembles in the problem's dtype.  `prior` adds the BA_reg prior factor
-    (factors.prior_factor, valid = prior.valid * knot_valid); knot_valid
-    enters only the prior's residual-mean denominator, as in the JAX step.
+    (factors.prior_factor, valid = prior.valid * knot_valid, weighted by
+    quat_coeff_prior / vel_coeff_prior); knot_valid enters only the prior's
+    residual-mean denominator, as in the JAX step.
     Returns (states_new (B, P, Nl, 10), lam_next (B,), accepted trial
     residual (B,))."""
     states = prob.states
@@ -214,7 +217,8 @@ def _one_orbit_iteration(sched_iter, lamda, prob: ShardedProblem,
         so evaluated over the B·P·Nl knots flattened."""
         lead = st.shape[:-4]
         return factors.prior_factor(st.reshape(lead + (BPN, 10)), *p_fields,
-                                    1.0, 1.0, valid=p_valid)
+                                    vel_coeff_prior, quat_coeff_prior,
+                                    valid=p_valid)
 
     rp = factors.reprojection_factor(states.reshape(BPN, 10), lm_flat, ii,
                                      intr)
@@ -414,7 +418,9 @@ def make_sharded_ba_step(mesh: mesh_mod.Mesh,
 def make_sharded_window_solver(mesh: mesh_mod.Mesh,
                                params: SolverParams = SolverParams(),
                                num_iters: int = 20, init_iters: int = 0,
-                               with_prior: bool = False):
+                               with_prior: bool = False,
+                               quat_coeff_prior: float = 1.0,
+                               vel_coeff_prior: float = 1.0):
     """A whole window's LM chain on the mesh (the sharded analog of
     window.solve_window / solve_window_reg):
 
@@ -427,7 +433,8 @@ def make_sharded_window_solver(mesh: mesh_mod.Mesh,
     The first init_iters iterations are vision-only; the schedule index is
     the iteration.  with_prior adds the BA_reg prior factor; a solve called
     without a ShardedPrior then takes an all-invalid one (as the JAX solver
-    builds it), and without with_prior a prior is ignored.
+    builds it), and without with_prior a prior is ignored.  quat_coeff_prior
+    / vel_coeff_prior weight the prior factor (factors.prior_factor).
 
     Returns solve(lamda0 (B,), prob, prior=None) -> (states (B, P, Nl, 10),
     lamda (B,), mean_residual (B,)).  P must be the mesh's arc shards in
@@ -458,7 +465,8 @@ def make_sharded_window_solver(mesh: mesh_mod.Mesh,
             st_n, lam_n, res = _one_orbit_iteration(
                 i, lam, prob._replace(states=states.reshape(B, P, Nl, 10)),
                 params, initialize=float(i < init_iters), prior=prior,
-                mesh=mesh)
+                mesh=mesh, quat_coeff_prior=quat_coeff_prior,
+                vel_coeff_prior=vel_coeff_prior)
             return BAStep(st_n.reshape(B, P * Nl, 10), lam_n, no_h, res)
 
         st, lam, _, res = window._lm_loop(

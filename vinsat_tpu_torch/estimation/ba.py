@@ -667,19 +667,23 @@ def ba_iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
 def ba_reg_iteration(sched_iter: int, states, prob: BAProblem,
                      prior: "PriorState", lamda_init,
                      params: SolverParams = SolverParams(),
+                     quat_coeff_prior: float = 1.0,
+                     vel_coeff_prior: float = 1.0,
                      initialize: bool = False) -> BAStep:
     """One regularized LM iteration with the window-marginal prior factor
-    (the JAX package's BA_reg, its prior coefficients at their 1.0
-    default): ba_iteration plus JpᵀJp (block diagonal) and the prior's
-    rotation Newton terms.  prior: a PriorState over all N knots (zero
-    information on knots without one).  One orbit."""
+    (the JAX package's BA_reg): ba_iteration plus JpᵀJp (block diagonal)
+    and the prior's rotation Newton terms.  prior: a PriorState over all N
+    knots (zero information on knots without one).  quat_coeff_prior /
+    vel_coeff_prior weight the prior's rotation and velocity residuals
+    (factors.prior_factor).  One orbit."""
     return _iteration(sched_iter, states, prob, lamda_init, params,
-                      initialize, prior)
+                      initialize, prior, quat_coeff_prior, vel_coeff_prior)
 
 
 def _iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
-               params: SolverParams, initialize: bool,
-               prior=None) -> BAStep:
+               params: SolverParams, initialize: bool, prior=None,
+               quat_coeff_prior: float = 1.0,
+               vel_coeff_prior: float = 1.0) -> BAStep:
     """ba_iteration, or with a PriorState ba_reg_iteration: the factors,
     the normal equations, the λ search and the retraction they share."""
     dtype, dev = states.dtype, states.device
@@ -687,7 +691,8 @@ def _iteration(sched_iter: int, states, prob: BAProblem, lamda_init,
 
     def prior_at(st):
         return factors.prior_factor(st, prior.prop_states, prior.H_state,
-                                    prior.H_rot, 1.0, 1.0,
+                                    prior.H_rot, vel_coeff_prior,
+                                    quat_coeff_prior,
                                     valid=prior.valid * prob.knot_valid)
 
     reproj = factors.reprojection_factor(

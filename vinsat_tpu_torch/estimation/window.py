@@ -822,11 +822,13 @@ def stream_orbit(det_rows: np.ndarray, orbit_pos_eci_km: np.ndarray,
                  seed: int = 0, cfg: StreamingConfig = StreamingConfig(),
                  solver: ba.SolverParams = ba.SolverParams(),
                  intrinsics: Optional[np.ndarray] = None,
-                 device=DEFAULT_DEVICE, checkpoint_path=None,
-                 resume_from=None, metrics=None,
+                 metrics=None, checkpoint_path=None, resume_from=None,
                  timer: Optional[StageTimer] = None,
-                 fast: Optional[bool] = None) -> StreamingResult:
-    """Run streaming OD on one detection sequence on `device`.
+                 fast: Optional[bool] = None,
+                 device=DEFAULT_DEVICE) -> StreamingResult:
+    """Run streaming OD on one detection sequence on `device`.  The
+    parameters it shares with the JAX package's stream_orbit come in that
+    function's order; `device` follows them.
 
     det_rows: (M, 6) [frame, lon, lat, xc, yc, conf]; orbit_pos_eci_km:
     (T, 3) GT 1 Hz ECI positions in km.  Returns the recorded errors/times
